@@ -1,5 +1,5 @@
-"""Fused masked Hamming 2-NN: the kernel's wrapper, its plain version and
-its launch counter.
+"""Fused masked Hamming 2-NN: the kernel's wrapper, its plain version, its
+bound and its launch counter.
 
 The counterpart of `aslam_tpu/ops/pallas_kernels.py::hamming_top2`.  For
 CUDA tensors `hamming_top2` launches the hand-written Hopper kernel
@@ -19,6 +19,33 @@ import torch
 
 from aslam_tpu_torch.ops.hamming import masked_distance_matrix
 
+# The kernel's partition of the work, equal to the constants of the same
+# names (kTileRows, ...) in csrc/hamming_top2.cu.  One tensor-core instruction
+# scores GROUP targets against the TILE_ROWS query rows of a block; the targets are staged
+# CHUNK = WARPS * 32 at a time into SLOTS slots of shared memory (a ring
+# beyond SLOTS * CHUNK targets); of every chunk warp w takes the groups w, w +
+# WARPS, ..., and in a group 8 lanes share a query row, each with targets g
+# and g + 8.  A pair's key is distance << KEY_SHIFT | index, plus MASKED <<
+# KEY_SHIFT for a masked target.
+TILE_ROWS = 8
+GROUP = 16
+WARPS = 16
+CHUNK = WARPS * 32
+SLOTS = 12
+KEY_SHIFT = 22
+MASKED = 512
+MAX_TARGETS = 1 << KEY_SHIFT
+
+# What `hamming_top2_bound` divides by: one NVIDIA H100 SXM at its 700 W limit.
+# 1-bit tensor-core rate: no data sheet gives one for this card, so it is the
+# rate that `kernels/bench_top2.py::mma_peak_ops_per_s` measured for
+# mma.sync m16n8k256 .b1 .and.popc alone on an H100 at 700 W: 9,526 to 9,787
+# TOP/s over several runs, rounded up; 4.95 times the data sheet's int8 rate
+# of 1,979 TOP/s
+MMA_OPS_PER_S = 9800e12
+POPC_PER_S = 132 * 16 * 1.98e9      # SMs x __popc results per clock per SM x Hz
+BYTES_PER_S = 3.35e12               # HBM3
+
 
 def hamming_top2_plain(desc_a: torch.Tensor, valid_a: torch.Tensor,
                        desc_b: torch.Tensor, valid_b: torch.Tensor):
@@ -29,66 +56,115 @@ def hamming_top2_plain(desc_a: torch.Tensor, valid_a: torch.Tensor,
     return vals[:, 0], idx[:, 0].to(torch.int32), vals[:, 1]
 
 
-_lib = None
+def hamming_top2_bound(n: int, m: int) -> dict:
+    """The least time one H100 could take for an [n] x [m] call.
+
+    The operations are those of one 256-deep 1-bit product per pair on the
+    tensor cores, 2*n*m*256, over the rate that the card was measured to
+    sustain for that instruction (`MMA_OPS_PER_S`; the data sheet gives no
+    1-bit rate).  The bytes are every input read once and every output
+    written once (descriptors 32 B a row, masks 1 B, three 4-byte outputs per
+    query row) over the 3.35 TB/s of HBM3 (`BYTES_PER_S`).  The bound is the
+    larger of the two times.  `popc` and `popc_us` are what the same work
+    costs outside the tensor cores, as n*m*8 popcounts of 32-bit words at 16
+    results per clock per SM (NVIDIA's table of arithmetic
+    instruction throughput, compute capability 9.0) on 132 SMs at 1.98 GHz
+    (`POPC_PER_S`): the bound of a design on XOR and `__popc`."""
+    mma_ops, popc = 2 * n * m * 256, n * m * 8
+    nbytes = (n + m) * (32 + 1) + 3 * n * 4
+    mma_us, bytes_us = mma_ops / MMA_OPS_PER_S * 1e6, nbytes / BYTES_PER_S * 1e6
+    return {"mma_ops": mma_ops, "popc": popc, "bytes": nbytes,
+            "popc_us": popc / POPC_PER_S * 1e6,
+            "bound_us": max(mma_us, bytes_us),
+            "bound_by": "mma" if mma_us >= bytes_us else "bytes"}
+
+
+_launch = None
 
 
 def _kernel():
-    global _lib
-    if _lib is None:
+    global _launch
+    if _launch is None:
         from aslam_tpu_torch.kernels import build
 
-        lib = build.load("hamming_top2")
-        fn = lib.hamming_top2_launch
+        fn = build.load("hamming_top2").hamming_top2_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p] * 4
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.hamming_top2_launch
+        _launch = fn
+    return _launch
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on the card, not {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _raise_bad_input(desc_a, valid_a, desc_b, valid_b):
+    """The detailed message for inputs that the kernel does not take."""
+    dev = desc_a.device
+    for name, t, dtype, width in (("desc_a", desc_a, torch.int32, 8),
+                                  ("valid_a", valid_a, torch.bool, None),
+                                  ("desc_b", desc_b, torch.int32, 8),
+                                  ("valid_b", valid_b, torch.bool, None)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must lie on the card, not {t.device}")
+        if t.device != dev:
+            raise ValueError("hamming_top2 inputs lie on different cards")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        rows = (desc_a if name.endswith("_a") else desc_b).shape[0]
+        shape = (rows,) if width is None else (rows, width)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if width is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a multiple of 16 bytes")
+    raise ValueError(f"hamming_top2 takes at most {MAX_TARGETS} targets, "
+                     f"got {desc_b.shape[0]}")
 
 
 def hamming_top2(desc_a: torch.Tensor, valid_a: torch.Tensor,
                  desc_b: torch.Tensor, valid_b: torch.Tensor):
     """desc_a [N,8] int32, valid_a [N] bool, desc_b [M,8] int32, valid_b [M]
-    bool -> (d1 [N] f32, i1 [N] int32, d2 [N] f32).
+    bool -> (d1 [N] f32, i1 [N] int32, d2 [N] f32), the three rows of one
+    [3, N] buffer.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream and add one to `hamming_top2.launches`."""
-    if desc_a.device.type == "cpu":
+    their card's current stream and add one to `hamming_top2.launches`.  The
+    call does not synchronise and allocates only its output, through
+    PyTorch's allocator, so it can be captured in a CUDA graph once a first
+    call has built and loaded the kernel; `launches` then counts the calls
+    made while capturing, not the replays."""
+    dev = desc_a.device
+    if dev.type == "cpu":
         return hamming_top2_plain(desc_a, valid_a, desc_b, valid_b)
     n, m = desc_a.shape[0], desc_b.shape[0]
-    _check("desc_a", desc_a, torch.int32, (n, 8))
-    _check("desc_b", desc_b, torch.int32, (m, 8))
-    _check("valid_a", valid_a, torch.bool, (n,))
-    _check("valid_b", valid_b, torch.bool, (m,))
-    # a bool tensor is one byte of 0/1 per element: the kernel reads it as
-    # uint8 in place
-    va, vb = valid_a.view(torch.uint8), valid_b.view(torch.uint8)
-    if any(t.device != desc_a.device for t in (valid_a, desc_b, valid_b)):
-        raise ValueError("hamming_top2 inputs lie on different cards")
-    launch = _kernel()
-    d1 = torch.empty(n, dtype=torch.float32, device=desc_a.device)
-    i1 = torch.empty(n, dtype=torch.int32, device=desc_a.device)
-    d2 = torch.empty(n, dtype=torch.float32, device=desc_a.device)
-    with torch.cuda.device(desc_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(desc_a.data_ptr(), va.data_ptr(), desc_b.data_ptr(),
-                     vb.data_ptr(), n, m, d1.data_ptr(), i1.data_ptr(),
-                     d2.data_ptr(), stream)
+    pa, pb = desc_a.data_ptr(), desc_b.data_ptr()
+    # a bool tensor is one byte of 0/1 per element: the kernel reads it in place
+    if not (desc_a.dtype == desc_b.dtype == torch.int32
+            and valid_a.dtype == valid_b.dtype == torch.bool
+            and desc_a.shape == (n, 8) and desc_b.shape == (m, 8)
+            and valid_a.shape == (n,) and valid_b.shape == (m,)
+            and dev == valid_a.device == desc_b.device == valid_b.device
+            and desc_a.is_contiguous() and desc_b.is_contiguous()
+            and valid_a.is_contiguous() and valid_b.is_contiguous()
+            and pa % 16 == 0 and pb % 16 == 0 and m <= MAX_TARGETS):
+        _raise_bad_input(desc_a, valid_a, desc_b, valid_b)
+    launch = _launch or _kernel()
+    # rows d1, i1, d2; the kernel writes i1's bits into the float32 buffer
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    args = (pa, valid_a.data_ptr(), pb, valid_b.data_ptr(), n, m, out.data_ptr())
+    # the raw handle of the card's current stream, read at call time (what
+    # torch.cuda.current_stream(dev).cuda_stream gives, without building a
+    # Stream object: 0.1 us for 3-4 us)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, stream)
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
     hamming_top2.launches += 1
-    return d1, i1, d2
+    d1, i1, d2 = out.unbind(0)
+    return d1, i1.view(torch.int32), d2
 
 
 hamming_top2.launches = 0

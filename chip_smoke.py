@@ -6,9 +6,15 @@
 Phases, one printed line each (or more, for phases 3 and 4):
   1. the card's name and power limit (nvidia-smi), then an nvcc build of
      every kernel of the path from `aslam_tpu_torch/csrc/`;
-  2. the `hamming_top2` kernel against its plain PyTorch version at the
-     main path's 1024 x 1024, exact integer equality, and both timed with
-     CUDA events in turns (plain, kernel, kernel, plain);
+  2. the `hamming_top2` kernel against its plain PyTorch version, exact
+     equality of all three outputs, at the main path's 1024 x 1024, at odd
+     shapes, with ties and masks and past what its shared memory holds; then
+     at 1024 x 1024 its eager per-call time beside the plain version's (CUDA
+     events, in turns plain, kernel, kernel, plain), its device time (launches
+     captured in a CUDA graph), an empty kernel's of the same grid and block,
+     the host's time per call and the card's bound, with the 1-bit tensor-core
+     rate that the bound divides by measured beside its constant; and its
+     device time and bound at 8192 x 8192;
   3. the full-width VO (640x480, 1024 keypoints, 8 levels, 256 RANSAC
      hypotheses) over 32 rendered frames fed as uint8 / uint16, through
      `VisualOdometry.process` and through one `track_sequence` call.  Each
@@ -88,42 +94,56 @@ def phase1_device_and_build():
     return card
 
 
-def _top2_inputs(rng, dev, n=1024, m=1024):
-    a = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    b = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    va, vb = rng.random(n) > 0.1, rng.random(m) > 0.1
-    b[100:132] = b[100]                 # duplicated targets: tied minima
-    a[:64] = b[100]
-    a[64:96] = b[7] ^ np.uint32(1 << 31)
-    b[500:508] = b[7]
-    to = lambda x: torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
-                                    else x).to(dev)
-    return [to(a), to(va), to(b), to(vb)]
+def _top2_cases(dev):
+    """name -> [desc_a, valid_a, desc_b, valid_b] on the card: the main path's
+    shape with tied minima and with no valid target, shapes that are no
+    multiple of the kernel's partition, one and two targets, masked queries,
+    all targets equal, and target counts beyond what stays resident in
+    shared memory (the ring)."""
+    from aslam_tpu_torch.kernels.bench_top2 import top2_inputs
 
-
-def _time_ms(fn, iters=200):
-    for _ in range(10):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    rng = np.random.default_rng(0)
+    cases = {"1024x1024 random+ties": top2_inputs(rng, dev)}
+    masked = top2_inputs(rng, dev)
+    masked[3] = torch.zeros_like(masked[3])            # no valid target at all
+    cases["1024x1024 all-masked targets"] = masked
+    for n, m in ((1000, 1023), (1, 1), (5, 3), (257, 31), (7, 1), (7, 2),
+                 (1024, 16384), (8192, 8192)):
+        cases[f"{n}x{m}"] = top2_inputs(rng, dev, n, m)
+    one = top2_inputs(rng, dev, 7, 2)
+    one[3] = torch.tensor([False, True], device=dev)   # d2 with one valid target
+    cases["7x2 one valid target"] = one
+    no_query = top2_inputs(rng, dev, 300, 700)
+    no_query[1] = torch.zeros_like(no_query[1])
+    cases["300x700 all-masked queries"] = no_query
+    for n, m in ((300, 700), (64, 7000)):
+        equal = top2_inputs(rng, dev, n, m)
+        equal[2] = equal[2][:1].repeat(m, 1)           # every target the same
+        equal[3] = torch.ones_like(equal[3])
+        cases[f"{n}x{m} all targets equal"] = equal
+    return cases
 
 
 def phase2_kernel_vs_plain(dev):
-    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2, hamming_top2_plain
+    """-> the `hamming_top2` entry of the kernels line, its launches apart."""
+    import ctypes
 
-    rng = np.random.default_rng(0)
-    cases = {"random+ties": _top2_inputs(rng, dev)}
-    masked = _top2_inputs(rng, dev)
-    masked[3] = torch.zeros_like(masked[3])            # no valid target at all
-    cases["all-masked targets"] = masked
+    from aslam_tpu_torch.kernels import build
+    from aslam_tpu_torch.kernels.bench_top2 import (event_us, graph_us, host_us,
+                                                    mma_peak_ops_per_s)
+    from aslam_tpu_torch.ops.hamming_top2 import (MMA_OPS_PER_S, hamming_top2,
+                                                  hamming_top2_bound,
+                                                  hamming_top2_plain)
+
+    cases = _top2_cases(dev)
     err = 0.0
     for name, args in cases.items():
         out = hamming_top2(*args)
+        a, va, b, vb = args
+        if len(b) == 1:
+            # the plain version sorts two values a row: give it a second,
+            # masked target, which the kernel's INVALID_DIST for d2 equals
+            args = [a, va, torch.cat([b, b]), torch.cat([vb, torch.zeros_like(vb)])]
         ref = hamming_top2_plain(*args)
         torch.cuda.synchronize()
         for k, (x, y) in enumerate(zip(out, ref)):
@@ -132,16 +152,69 @@ def phase2_kernel_vs_plain(dev):
                 raise AssertionError(f"hamming_top2 output {k} differs from the "
                                      f"plain version ({name}), rows {bad}")
             err = max(err, float((x.double() - y.double()).abs().max()))
-    args = cases["random+ties"]
-    plain = [_time_ms(lambda: hamming_top2_plain(*args))]
-    kern = [_time_ms(lambda: hamming_top2(*args)) for _ in range(2)]
-    plain.append(_time_ms(lambda: hamming_top2_plain(*args)))
-    ms, plain_ms = sum(kern) / 2, sum(plain) / 2
-    print(f"phase 2: hamming_top2 1024x1024 == plain exactly (tolerance 0, "
-          f"{len(cases)} cases, max abs err {err}); kernel {ms * 1e3:.1f} us, "
-          f"plain {plain_ms * 1e3:.1f} us (CUDA events, plain/kernel/kernel/plain)",
-          flush=True)
-    return err, ms, plain_ms
+        del out, ref
+    print(f"phase 2: hamming_top2 == plain exactly (tolerance 0, max abs err "
+          f"{err}) on {len(cases)} cases: {', '.join(cases)}", flush=True)
+
+    empty = build.load("hamming_top2").hamming_top2_empty_launch
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+
+    def launch_empty(n, m):
+        if empty(n, m, torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    # the main path's shape: eager per-call times in turns, then the device
+    # time free of the host, the least a launch of this shape takes, and the
+    # host's own time per call
+    args = cases["1024x1024 random+ties"]
+    plain = [event_us(lambda: hamming_top2_plain(*args))]
+    kern = [event_us(lambda: hamming_top2(*args)) for _ in range(2)]
+    plain.append(event_us(lambda: hamming_top2_plain(*args)))
+    call_us, plain_us = sum(kern) / 2, sum(plain) / 2
+    device_us = graph_us(lambda: hamming_top2(*args))
+    floor_us = graph_us(lambda: launch_empty(1024, 1024))
+    host = host_us(lambda: hamming_top2(*args))
+    bound = hamming_top2_bound(1024, 1024)
+    print(f"phase 2: 1-bit mma rate of this card {mma_peak_ops_per_s(dev) / 1e12:.0f} "
+          f"TOP/s (probe kernel, best of 3); the bound divides by "
+          f"{MMA_OPS_PER_S / 1e12:.0f} TOP/s", flush=True)
+    print(f"phase 2: 1024x1024: device {device_us:.2f} us (20 launches in a "
+          f"CUDA graph, 50 replays), floor {floor_us:.2f} us (empty kernel, "
+          f"same grid and block), bound {bound['bound_us']:.2f} us "
+          f"({bound['bound_by']}; {bound['popc_us']:.2f} us as popcounts); per "
+          f"eager call {call_us:.1f} us, plain {plain_us:.1f} us (CUDA events, "
+          f"plain/kernel/kernel/plain); host {host:.1f} us per call (median "
+          f"of 3 x 1000 unsynchronised calls)", flush=True)
+
+    # where the work and not the launch sets the time
+    big = cases["8192x8192"]
+    big_us = graph_us(lambda: hamming_top2(*big), launches=5, replays=10)
+    big_floor = graph_us(lambda: launch_empty(8192, 8192))
+    big_plain = event_us(lambda: hamming_top2_plain(*big), iters=3)
+    big_b = hamming_top2_bound(8192, 8192)
+    big_bound = big_b["bound_us"]
+    print(f"phase 2: 8192x8192: device {big_us:.1f} us, bound {big_bound:.1f} "
+          f"us ({big_b['bound_by']}; {big_bound / big_us:.1%} of the bound "
+          f"reached; {big_b['popc_us']:.1f} us as popcounts), floor "
+          f"{big_floor:.2f} us, plain {big_plain:.0f} us", flush=True)
+    return {
+        "name": "hamming_top2",
+        "route": "cuda",
+        "source": "aslam_tpu_torch/csrc/hamming_top2.cu",
+        "replaces": "aslam_tpu/ops/pallas_kernels.py:57",
+        "max_abs_err": err,
+        "ms": call_us / 1e3,
+        "plain_ms": plain_us / 1e3,
+        "device_ms": device_us / 1e3,
+        "floor_ms": floor_us / 1e3,
+        "host_ms": host / 1e3,
+        "bound_ms": bound["bound_us"] / 1e3,
+        "bound_by": "operations" if bound["bound_by"] == "mma" else "bytes",
+        "library_ms": None,       # no single PyTorch call computes this function
+        "device_ms_8192": big_us / 1e3,
+        "bound_ms_8192": big_bound / 1e3,
+    }
 
 
 def _check_run(mode, poses, n_matches, launches, gt_poses, seconds, card):
@@ -331,21 +404,13 @@ def main():
 
     t0 = time.perf_counter()
     card = phase1_device_and_build()
-    err, ms, plain_ms = phase2_kernel_vs_plain(dev)
+    kernel = phase2_kernel_vs_plain(dev)
     launches, _, _ = phase3_vo(dev, card)
     launches += phase4_slam(dev, card)
     print(f"chip_smoke: phases 1-4 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "hamming_top2",
-        "route": "cuda",
-        "source": "aslam_tpu_torch/csrc/hamming_top2.cu",
-        "replaces": "aslam_tpu/ops/pallas_kernels.py:57",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,10 +37,15 @@ def _inputs(n, m, seed, dev, ties=True, p_mask=0.1):
             .to(dev) for x in (a, va, b, vb)]
 
 
-# odd sizes: rows not a multiple of 8 warps, targets below one warp, not a
-# multiple of the 256-target tile, one target only, and the main path's sizes
-SHAPES = [(1, 1), (7, 2), (33, 31), (100, 257), (257, 513), (256, 256),
-          (1024, 1024), (1000, 2049)]
+# odd sizes: rows not a multiple of a block's 8, targets below one warp, not a
+# multiple of the 256-target chunk or the 512-target pass, one and two targets
+# only, the main path's sizes, many more rows than SMs times 8, the most
+# targets that stay resident in shared memory (6144), and more than that,
+# where the chunks go round a ring
+SHAPES = [(1, 1), (7, 2), (5, 3), (33, 31), (257, 31), (100, 257), (257, 513),
+          (256, 256), (1024, 1024), (1000, 1023), (1000, 2049), (2049, 77),
+          (4100, 530), (8200, 33), (64, 6144), (64, 6145), (40, 12800),
+          (1024, 16384)]
 
 
 @pytest.mark.parametrize("n,m", SHAPES)
@@ -76,6 +81,56 @@ def test_hamming_top2_wrapper_rejects_bad_inputs():
         hamming_top2(a, va, b.cpu(), vb)
     with pytest.raises(TypeError):
         hamming_top2(a, va.to(torch.uint8), b, vb)
+
+
+def test_hamming_top2_rejects_misplaced_and_mixed_card_inputs():
+    dev = _card()
+    a, va, b, vb = _inputs(16, 16, 0, dev)
+    with pytest.raises(ValueError):
+        hamming_top2(a, va, b, torch.ones(32, dtype=torch.bool, device=dev)[::2])
+    with pytest.raises(ValueError):           # descriptors off a 16-byte boundary
+        hamming_top2(torch.zeros(16 * 8 + 1, dtype=torch.int32, device=dev)[1:]
+                     .view(16, 8), va, b, vb)
+    if torch.cuda.device_count() > 1:
+        with pytest.raises(ValueError):
+            hamming_top2(a, va, b.to("cuda:1"), vb.to("cuda:1"))
+
+
+def test_hamming_top2_is_capturable_in_a_cuda_graph():
+    """Two calls captured in one CUDA graph; a replay over new input contents
+    gives the plain version's outputs exactly.  `launches` counts the two
+    calls made while capturing, not the replays."""
+    dev = _card()
+    first, second = _inputs(1024, 1024, 0, dev), _inputs(300, 7000, 1, dev)
+    hamming_top2(*first)                      # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = hamming_top2.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [hamming_top2(*first), hamming_top2(*second)]
+    assert hamming_top2.launches == before + 2
+    for seed in (5, 6):
+        for held, new in ((first, _inputs(1024, 1024, seed, dev, seed == 5)),
+                          (second, _inputs(300, 7000, seed + 10, dev))):
+            for x, y in zip(held, new):
+                x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert hamming_top2.launches == before + 2
+        for out, args in zip(outs, (first, second)):
+            for x, y in zip(out, hamming_top2_plain(*args)):
+                assert torch.equal(x, y), seed
+
+
+def test_mma_peak_probe_reads_about_the_rate_the_bound_divides_by():
+    """`hamming_top2_bound` divides by a measured 1-bit tensor-core rate: the
+    probe that measured it reads no more than a tenth above the constant on
+    this card (a lower constant would flatter the kernel), and not far below."""
+    from aslam_tpu_torch.kernels.bench_top2 import mma_peak_ops_per_s
+    from aslam_tpu_torch.ops.hamming_top2 import MMA_OPS_PER_S
+
+    rate = mma_peak_ops_per_s(_card())
+    assert 0.7 * MMA_OPS_PER_S <= rate <= 1.1 * MMA_OPS_PER_S, rate
 
 
 def test_device_slam_on_card_matches_cpu_run():

@@ -4,6 +4,9 @@ kernel) against the reference's default path (masked distance matrix +
 lax.top_k) and against its Pallas kernel in interpret mode, the ratio match
 and the duplicate resolution.  All exact: the distances are integers."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,9 @@ from aslam_tpu.ops import matching as jmatch
 from aslam_tpu.ops import pallas_kernels
 from aslam_tpu_torch.ops import hamming as tham
 from aslam_tpu_torch.ops import matching as tmatch
-from aslam_tpu_torch.ops.hamming_top2 import hamming_top2, hamming_top2_plain
+from aslam_tpu_torch.ops import hamming_top2 as top2_mod
+from aslam_tpu_torch.ops.hamming_top2 import (hamming_top2, hamming_top2_bound,
+                                              hamming_top2_plain)
 
 INVALID = jham.INVALID_DIST
 
@@ -52,6 +57,10 @@ def make_case(kind, n=256, m=320, seed=0):
         vb[17] = True
     elif kind == "no_valid_queries":
         va[:] = False
+    elif kind == "all_equal":
+        b[:] = b[0]
+        a[: n // 2] = b[0]
+        vb[:] = True
     return a, va, b, vb
 
 
@@ -193,3 +202,150 @@ def test_projection_match_matches_reference(ratio, ties):
     for x, y in zip(out, ref):
         np.testing.assert_array_equal(P.n(x), np.asarray(y))
     assert int(np.asarray(ref.valid).sum()) > 100
+
+
+# --- the CUDA kernel's partition and merge, modelled in numpy ---------------
+
+_NO_KEY = np.uint32(0xFFFFFFFF)
+
+
+def _merge_pairs(k1, k2):
+    """The kernel's merge of (k1 <= k2) key pairs along the last axis: m1 the
+    least first key, m2 the least of the winner's second key and the others'
+    first keys (keys other than _NO_KEY are distinct)."""
+    m1 = k1.min(axis=-1)
+    m2 = np.where(k1 == m1[..., None], k2, k1).min(axis=-1)
+    return m1, m2
+
+
+def partition_model(a, va, b, vb):
+    """What csrc/hamming_top2.cu computes, in its order.  Of every CHUNK =
+    WARPS * 32 targets warp w takes the groups of GROUP = 16 targets w and w +
+    WARPS; within a group, lane g of the 8 that share a query row takes
+    targets g and g + 8.  A thread keeps the two least keys (distance <<
+    KEY_SHIFT | index, MASKED added to the distance of a target that is
+    masked or beyond the end) of what it takes; the 8 lanes merge pairwise in
+    three exchange steps, then the WARPS warps by the rule of `_merge_pairs`;
+    the row's result is decoded from the two keys left."""
+    M = top2_mod
+    n, m = len(a), len(b)
+    chunks = -(-m // M.CHUNK)
+    steps = M.CHUNK // (M.GROUP * M.WARPS)
+    x = a[:, None, :] ^ b[None, :, :]
+    dist = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1).astype(np.uint32)
+    # beyond the end the kernel scores what shared memory happens to hold
+    dist = np.concatenate([dist, np.full((n, chunks * M.CHUNK - m), 77, np.uint32)], axis=1)
+    masked = np.concatenate([~vb, np.ones(chunks * M.CHUNK - m, bool)])
+    jpen = np.arange(chunks * M.CHUNK, dtype=np.uint32) \
+        | np.where(masked, M.MASKED << M.KEY_SHIFT, 0).astype(np.uint32)
+    keys = (dist << np.uint32(M.KEY_SHIFT)) + jpen
+    # target c * CHUNK + (s * WARPS + w) * GROUP + 8 * h + g -> [c, s, w, h, g]
+    keys = keys.reshape(n, chunks, steps, M.WARPS, 2, 8)
+    k1 = np.full((n, M.WARPS, 8), _NO_KEY)
+    k2 = k1.copy()
+    for c in range(chunks):
+        for s in range(steps):
+            for h in range(2):
+                key = keys[:, c, s, :, h, :]
+                k2 = np.minimum(k2, np.maximum(k1, key))
+                k1 = np.minimum(k1, key)
+    for step in (1, 2, 4):          # lane g exchanges with lane g ^ step
+        other = np.arange(8) ^ step
+        o1, o2 = k1[..., other], k2[..., other]
+        k1, k2 = np.minimum(k1, o1), np.minimum(np.maximum(k1, o1), np.minimum(k2, o2))
+    assert (k1 == k1[..., :1]).all() and (k2 == k2[..., :1]).all()
+    m1, m2 = _merge_pairs(k1[..., 0], k2[..., 0])
+    d1, d2 = (m1 >> M.KEY_SHIFT).astype(np.int64), (m2 >> M.KEY_SHIFT).astype(np.int64)
+    found = va & (d1 < M.MASKED)
+    i1 = np.where(found, m1 & np.uint32(M.MAX_TARGETS - 1), 0).astype(np.int32)
+    return (np.where(found, d1, INVALID).astype(np.float32), i1,
+            np.where(found & (d2 < M.MASKED), d2, INVALID).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind,n,m", [
+    ("random", 40, 320), ("ties", 64, 320), ("all_equal", 24, 1100),
+    ("one_valid_target", 24, 600), ("no_valid_targets", 9, 513),
+    ("no_valid_queries", 9, 511), ("ties", 64, 1025), ("random", 5, 3),
+    ("random", 3, 1), ("one_valid_target", 8, 18)])
+def test_kernel_partition_model_equals_plain(kind, n, m):
+    """The kernel's split of the targets over lanes, warps and chunks and its
+    merge order give the plain version's outputs exactly, ties and masks
+    included, for target counts that are no multiple of the partition."""
+    a, va, b, vb = make_case(kind, n=n, m=m, seed=3)
+    d1, i1, d2 = partition_model(a, va, b, vb)
+    if m == 1:      # the plain version sorts two values: add a masked target
+        b, vb = np.concatenate([b, b]), np.concatenate([vb, [False]])
+    ref = hamming_top2_plain(P.t(a), P.t(va), P.t(b), P.t(vb))
+    np.testing.assert_array_equal(d1, P.n(ref[0]))
+    np.testing.assert_array_equal(i1, P.n(ref[1]))
+    np.testing.assert_array_equal(d2, P.n(ref[2]))
+    if kind in ("ties", "all_equal"):
+        assert (d1 == d2)[va].any()
+
+
+def test_wrapper_constants_equal_the_kernel_source():
+    src = (Path(top2_mod.__file__).parent.parent / "csrc" / "hamming_top2.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(const["kTileRows"]) == top2_mod.TILE_ROWS
+    assert int(const["kGroup"]) == top2_mod.GROUP
+    assert int(const["kWarps"]) == top2_mod.WARPS
+    assert const["kThreads"] == "kWarps * 32" and const["kChunk"] == "kThreads"
+    assert top2_mod.CHUNK == top2_mod.WARPS * 32
+    assert int(const["kSlots"]) == top2_mod.SLOTS
+    assert int(const["kKeyShift"]) == top2_mod.KEY_SHIFT
+    assert int(const["kMasked"]) == top2_mod.MASKED
+    # the slots fit the 227 KB of shared memory a block may have, beside the
+    # barriers and the block's partial results
+    partial = top2_mod.TILE_ROWS * top2_mod.WARPS * 8
+    assert top2_mod.SLOTS * top2_mod.CHUNK * 32 + partial + 1024 <= 232448
+
+
+@pytest.mark.parametrize("n,m,popc,nbytes,bound_us,popc_us", [
+    (1024, 1024, 8388608, 79872, 0.05478, 2.0),
+    (8192, 8192, 536870912, 638976, 3.506, 128.4),
+    (1024, 16384, 134217728, 586752, 0.8765, 32.1),
+    (8192, 1024, 67108864, 402432, 0.4383, 16.05)])
+def test_hamming_top2_bound(n, m, popc, nbytes, bound_us, popc_us):
+    bound = hamming_top2_bound(n, m)
+    assert bound["popc"] == popc == n * m * 8
+    assert bound["mma_ops"] == 2 * n * m * 256
+    assert bound["bytes"] == nbytes == 33 * (n + m) + 12 * n
+    assert bound["bound_by"] == "mma"
+    assert bound["bound_us"] == pytest.approx(bound_us, rel=1e-3)
+    assert bound["bound_us"] == bound["mma_ops"] / top2_mod.MMA_OPS_PER_S * 1e6
+    # the 1-bit rate is a measured one, above the data sheet's int8 rate
+    assert top2_mod.MMA_OPS_PER_S == 9800e12 > 1979e12
+    assert bound["popc_us"] == pytest.approx(popc_us, abs=0.05)
+    assert bound["popc_us"] == popc / (132 * 16 * 1.98e9) * 1e6
+
+
+def test_hamming_top2_bound_by_bytes_when_one_side_is_tiny():
+    bound = hamming_top2_bound(1, 1)
+    assert bound["bound_by"] == "bytes" and bound["popc"] == 8
+    assert bound["bound_us"] == bound["bytes"] / 3.35e12 * 1e6
+
+
+@pytest.mark.parametrize("kind", ["random", "no_valid_targets"])
+def test_wrapper_on_cpu_returns_plain_tensors_with_documented_types(kind):
+    a, va, b, vb = make_case(kind, n=33, m=70)
+    out = hamming_top2(P.t(a), P.t(va), P.t(b), P.t(vb))
+    ref = hamming_top2_plain(P.t(a), P.t(va), P.t(b), P.t(vb))
+    assert [x.dtype for x in out] == [torch.float32, torch.int32, torch.float32]
+    assert [tuple(x.shape) for x in out] == [(33,)] * 3
+    for x, y in zip(out, ref):
+        assert torch.equal(x, y)
+
+
+def test_bench_inputs_hold_masks_and_tied_minima():
+    """`bench_top2.top2_inputs`, the timed and checked inputs of the kernel on
+    the card: the documented shapes and types, a tenth masked, and tied
+    minima (d2 == d1) among the rows of the plain version's result."""
+    from aslam_tpu_torch.kernels.bench_top2 import top2_inputs
+
+    a, va, b, vb = top2_inputs(np.random.default_rng(0), "cpu", 128, 600)
+    assert (a.dtype, va.dtype, b.dtype, vb.dtype) == (torch.int32, torch.bool) * 2
+    assert a.shape == (128, 8) and b.shape == (600, 8)
+    assert va.shape == (128,) and vb.shape == (600,)
+    assert 0 < int((~va).sum()) < 40 and 0 < int((~vb).sum()) < 120
+    d1, _, d2 = hamming_top2_plain(a, va, b, vb)
+    assert int(((d1 == d2) & va).sum()) >= 32
