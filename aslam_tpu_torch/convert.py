@@ -10,7 +10,12 @@ that both sides start from the same frame:
   * `map_state` / `slam_state`: a MapState / SlamState-shaped object ->
     the port's (the SlamState's host counters become Python ints);
   * `system_config`: a SystemConfig given as its field dict
-    (`dataclasses.asdict`).
+    (`dataclasses.asdict`);
+  * `icp_result`, `pose_graph`, `vocabulary`, `database_state`: the
+    NamedTuples of the ICP and loop-closing slice;
+  * `loop_closing_state`: the vocabulary, database and host-side gate state
+    of a reference `LoopClosing` into the port's object, so that it
+    continues from the same state.
 """
 
 from __future__ import annotations
@@ -84,3 +89,51 @@ def system_config(fields: dict) -> cfg_mod.SystemConfig:
     kw = {k: (_SECTIONS[k](**v) if k in _SECTIONS else v)
           for k, v in fields.items()}
     return cfg_mod.SystemConfig(**kw)
+
+
+def _named(cls, x, device):
+    return cls(**{name: tensor(getattr(x, name), device)
+                  for name in cls._fields})
+
+
+def icp_result(r, device: torch.device | str):
+    from aslam_tpu_torch.ops.icp import ICPResult
+
+    return _named(ICPResult, r, device)
+
+
+def pose_graph(pg, device: torch.device | str):
+    from aslam_tpu_torch.ops.pose_graph import PoseGraph
+
+    return _named(PoseGraph, pg, device)
+
+
+def vocabulary(v, device: torch.device | str):
+    """A Vocabulary-shaped object (level_cents: uint32 arrays, idf)."""
+    from aslam_tpu_torch.ops.bow import Vocabulary
+
+    return Vocabulary(level_cents=tuple(tensor(c, device)
+                                        for c in v.level_cents),
+                      idf=tensor(np.asarray(v.idf, np.float32), device))
+
+
+def database_state(db, device: torch.device | str):
+    from aslam_tpu_torch.models.loopclosing import DatabaseState
+
+    return _named(DatabaseState, db, device)
+
+
+def loop_closing_state(lc_ref, lc_port) -> None:
+    """Carry a reference LoopClosing's vocabulary, database, consistency
+    groups and loop bookkeeping into the port's `lc_port`, in place."""
+    dev = lc_port.device
+    lc_port.vocab = (None if lc_ref.vocab is None
+                     else vocabulary(lc_ref.vocab, dev))
+    lc_port.db = database_state(lc_ref.db, dev)
+    lc_port.trained_on_kfs = int(lc_ref.trained_on_kfs)
+    lc_port.last_loop_kf_id = int(lc_ref.last_loop_kf_id)
+    lc_port.consistent_groups = [(set(int(i) for i in g), int(c))
+                                 for g, c in lc_ref.consistent_groups]
+    lc_port.loops = [(int(q), int(c)) for q, c in lc_ref.loops]
+    lc_port.consistent_revisits = [(int(q), int(c))
+                                   for q, c in lc_ref.consistent_revisits]

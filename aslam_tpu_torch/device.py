@@ -10,6 +10,7 @@ decide rBRIEF bits.  So both are turned off here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.set_float32_matmul_precision("highest")
@@ -27,3 +28,12 @@ def read_host(*xs: torch.Tensor) -> list[int]:
 
 
 read_host.count = 0
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """Read one tensor of any dtype back to the host as a numpy array (one
+    transfer, one device sync), counted in `read_host.count` like every
+    other read the engine makes.  Callers pack what they need into one
+    tensor first."""
+    read_host.count += 1
+    return x.cpu().numpy()

@@ -1,10 +1,13 @@
 """Device-resident SLAM: feature extraction, odometry, tracking against the
 local map, keyframe insertion and the inline local mapping, per frame.
 
-Port of `aslam_tpu/models/device_slam.py` for `use_loop_closing=False` and
-`use_gicp=False` (config 2).  The reference keeps every branch on the
-device under `lax.cond`; here each branch is a host `if` on a value the
-host either knows or reads:
+Port of `aslam_tpu/models/device_slam.py`: config 2, config 3
+(`use_gicp`: the odometry is `ricp_fused`, RANSAC then GICP where RANSAC is
+poor, with no host read of its own) and loop closing (`use_loop_closing`: at
+the sync cadence the host reads the insertion ring once and hands the fresh
+keyframes to `LoopClosing.process_keyframes_batch`).  The reference keeps
+every branch on the device under `lax.cond`; here each branch is a host `if`
+on a value the host either knows or reads:
 
   * the keyframe id is a host mirror of the reference's `kf_counter`;
   * the keyframe-insertion branch reads `need_kf` and the first free slot
@@ -15,8 +18,10 @@ host either knows or reads:
 
 `lax.scan` over a chunk becomes a Python loop over `slam_step` with one
 `torch.Generator` for the RANSAC draws, so a chunked run equals the
-frame-by-frame run.  `save`, `resume` and `new_sequence` wait for loop
-closing and the host engines.
+frame-by-frame run as long as the sync cadence does nothing between frames
+(with loop closing, or without inline mapping, a chunk syncs at its end
+where the stream syncs inside it).  `save`, `resume` and `new_sequence`
+wait for the host engines.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from aslam_tpu_torch.models.extractor import init_grid_thresholds
 from aslam_tpu_torch.models.localmapping import (empty_cull_info,
                                                  map_keyframe_body,
                                                  map_keyframe_fused)
-from aslam_tpu_torch.models.odometry import rba_step
+from aslam_tpu_torch.models.loopclosing import LoopClosing
+from aslam_tpu_torch.models.odometry import rba_step, ricp_fused
 from aslam_tpu_torch.models.tracking import carry_associations, track_local_map
 from aslam_tpu_torch.utils.se3 import T_inv, pose_distance
 
@@ -52,12 +58,6 @@ class SlamState(NamedTuple):
     recent_slots: torch.Tensor   # [R] int32
     recent_ids: torch.Tensor     # [R] int32
     recent_n: int                # host mirror: raw count (> R = overflow)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port runs config 2 (use_gicp=False, "
-        f"use_loop_closing=False)")
 
 
 def init_slam(cfg: SystemConfig, img: torch.Tensor, depth: torch.Tensor,
@@ -94,8 +94,6 @@ def slam_step(state: SlamState, img: torch.Tensor, depth: torch.Tensor,
     optionally fixes the RANSAC samples (see ops/ransac.py).  With
     `inline_mapping` the keyframe's whole local mapping runs inside the
     insertion branch."""
-    if cfg.use_gicp:
-        raise _not_ported("config 3 (use_gicp: ricp_fused, ops/icp.py)")
     frame, new_grid = frame_mod._make_frame_impl(img, depth,
                                                  state.grid_thresholds, cfg)
     return slam_step_frame(state, frame, new_grid, generator, cfg,
@@ -109,7 +107,9 @@ def slam_step_frame(state: SlamState, frame: frame_mod.FrameData,
     """`slam_step` from the frame on: for a FrameData made already (the
     parity tests pass the reference's)."""
     dev = frame.T_cw.device
-    odo = rba_step(state.last_frame, frame, generator, cfg, draws=draws)
+    # ADAPTIVE_RICP (config 3) or ADAPTIVE_RBA
+    odometry = ricp_fused if cfg.use_gicp else rba_step
+    odo = odometry(state.last_frame, frame, generator, cfg, draws=draws)
     frame = frame_mod.with_pose(frame, odo.T_cw2)
     assoc = carry_associations(state.last_assoc, odo.match_idx, odo.inliers)
     # the motion prior anchors the map solve only when odometry was healthy
@@ -210,15 +210,14 @@ class DeviceSlam:
     into `slam_scan` (`process_chunk`).  Frames go to the device in their
     sensor dtypes (uint8 gray, uint16 depth counts).  With `inline_mapping`
     (default) mapping runs inside the keyframe's step and the sync cadence
-    has nothing to do; without it each sync drains the insertion ring with
-    one read and maps the fresh keyframes in order.  The RANSAC draws come
-    from a generator on `device` seeded with `seed`."""
+    serves loop closing only (nothing to do and nothing read without it);
+    otherwise each sync drains the insertion ring with one read, maps the
+    fresh keyframes in order, then runs loop detection over them.  The
+    RANSAC draws come from a generator on `device` seeded with `seed`."""
 
     def __init__(self, cfg: SystemConfig, device: torch.device | str,
                  seed: int = 0, sync_every: int = 8, ring: int = 128,
                  inline_mapping: bool = True):
-        if cfg.use_loop_closing:
-            raise _not_ported("loop closing (use_loop_closing)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -235,6 +234,9 @@ class DeviceSlam:
         self.last_mapped_id = 0      # kf_id high-water mark through mapping
         self.last_n_kfs = 1          # live KF count as of the last sync read
         self._cull_pending: list[ms.CullInfo] = []
+        self.sync_reads: list[int] = []   # host reads of each sync that ran
+        self.loop_closing = (LoopClosing(cfg, self.device)
+                             if cfg.use_loop_closing else None)
 
     def process(self, img, depth, t: float = 0.0):
         img, depth = _as_device(img, self.device), _as_device(depth, self.device)
@@ -295,11 +297,15 @@ class DeviceSlam:
 
     def _background_mapping(self):
         """The sync cadence.  Inline mode without loop closing: nothing to
-        do and nothing read.  Otherwise one read of the insertion ring, then
-        the fused mapping of each fresh keyframe in id order."""
-        if self.state is None or self.inline_mapping:
+        do and nothing read.  Otherwise one read of the insertion ring, the
+        fused mapping of each fresh keyframe in id order (unless inline),
+        then batched loop detection over the fresh keyframes."""
+        if self.state is None:
+            return
+        if self.inline_mapping and self.loop_closing is None:
             return
         R = self.ring
+        reads_before = read_host.count
         packed = read_host(_pack_ring(self.state))
         slots, ids = np.asarray(packed[:R]), np.asarray(packed[R:2 * R])
         count = packed[2 * R]
@@ -313,16 +319,24 @@ class DeviceSlam:
         fresh = np.argsort(ids[live], kind="stable")
         f_slots, f_ids = slots[live][fresh], ids[live][fresh]
         m = self.state.m
-        for slot, kf_id in zip(f_slots, f_ids):
-            m, cull = map_keyframe_fused(m, int(slot), int(kf_id), self.cfg)
-            self._cull_pending.append(cull)
+        if not self.inline_mapping:
+            for slot, kf_id in zip(f_slots, f_ids):
+                m, cull = map_keyframe_fused(m, int(slot), int(kf_id),
+                                             self.cfg)
+                self._cull_pending.append(cull)
         if len(f_ids):
             self.last_mapped_id = max(self.last_mapped_id, int(f_ids[-1]))
-            # mapping moved keyframes: re-anchor the tracker's reference pose
+        if self.loop_closing is not None and len(f_slots):
+            m = self.loop_closing.process_keyframes_batch(
+                m, f_slots.tolist(), f_ids.tolist(), n_live=self.last_n_kfs)
+        if len(f_slots):
+            # mapping or a loop moved keyframes: re-anchor the tracker's
+            # reference pose to the refined map
             self.state = self.state._replace(
                 m=m, last_kf_T=m.kf_T_cw[int(f_slots[-1])])
         else:
             self.state = self.state._replace(m=m)
+        self.sync_reads.append(read_host.count - reads_before)
 
     @property
     def kfs_mapped(self) -> int:

@@ -193,6 +193,60 @@ def landmark_mask_of_slots(m: MapState, slots: torch.Tensor,
     return set_rows(torch.zeros_like(m.lm_valid), flat, True) & m.lm_valid
 
 
+def incidence(m: MapState, lo: int, hi: int) -> torch.Tensor:
+    """[hi-lo, L] float32 0/1: keyframe row k observes landmark l, for the
+    rows lo..hi-1 (never the whole [K,L] matrix unless asked for)."""
+    L = m.lm_pos.shape[0]
+    rows = m.kf_lm[lo:hi]
+    ok = m.kf_kp_valid[lo:hi] & m.kf_valid[lo:hi, None] & (rows >= 0)
+    A = torch.zeros(hi - lo, L + 1, dtype=torch.float32, device=rows.device)
+    A.scatter_(1, _where_i(ok, rows, L), 1.0)
+    return A[:, :L] * m.lm_valid[None, :]
+
+
+def covisibility(m: MapState, chunk: int = 256) -> torch.Tensor:
+    """[K,K] int32 shared-landmark counts, as products of incidence blocks
+    of `chunk` rows built on the fly (one A A^T at K <= chunk).  The counts
+    are integers below 2^24, exact in the float32 product.  Only
+    coarse-cadence consumers (the pose-graph build) need the full matrix."""
+    K = m.kf_lm.shape[0]
+    starts = range(0, K, chunk)
+    W = torch.cat([
+        torch.cat([incidence(m, i, min(i + chunk, K))
+                   @ incidence(m, j, min(j + chunk, K)).T for j in starts], 1)
+        for i in starts]).to(torch.int32)
+    W = W * (1 - torch.eye(K, dtype=torch.int32, device=W.device))
+    return W * (m.kf_valid[:, None] & m.kf_valid[None, :])
+
+
+def rebuild_observer_index(m: MapState) -> MapState:
+    """Recompute lm_obs_* from kf_lm (the source of truth), for maps
+    assembled by hand.  Host-side; oldest KF first, so the ring keeps the
+    newest observers."""
+    import numpy as np
+
+    dev = m.kf_lm.device
+    kf_lm = m.kf_lm.cpu().numpy()
+    kf_valid = m.kf_valid.cpu().numpy()
+    kf_kp_valid = m.kf_kp_valid.cpu().numpy()
+    L, O = m.lm_obs_kf.shape
+    okf = np.full((L, O), -1, np.int32)
+    ofe = np.zeros((L, O), np.int32)
+    ptr = np.zeros(L, np.int32)
+    for k in np.argsort(m.kf_id.cpu().numpy()):
+        if not kf_valid[k]:
+            continue
+        feats = np.nonzero((kf_lm[k] >= 0) & kf_kp_valid[k])[0]
+        ls = kf_lm[k][feats]
+        pos = ptr[ls] % O
+        okf[ls, pos] = k
+        ofe[ls, pos] = feats
+        ptr[ls] += 1
+    return m._replace(lm_obs_kf=torch.from_numpy(okf).to(dev),
+                      lm_obs_feat=torch.from_numpy(ofe).to(dev),
+                      lm_obs_ptr=torch.from_numpy(ptr).to(dev))
+
+
 # ------------------------------------------------------------------ insert
 
 def _set_row(x: torch.Tensor, slot: int, v) -> torch.Tensor:

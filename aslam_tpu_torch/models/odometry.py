@@ -1,11 +1,21 @@
-"""Frame-to-frame odometry: the ADAPTIVE_RBA policy.
+"""Frame-to-frame odometry: the ADAPTIVE_RBA and ADAPTIVE_RICP policies.
 
-Port of `rba_step`, `track_frame` and `track_sequence` of
-`aslam_tpu/models/odometry.py`: 2-NN ratio match (through the
-`hamming_top2` kernel on the card), duplicate resolution, Mahalanobis
-RANSAC, pose composition T_cw2 = T12 T_cw1, then motion-only BA.  Every
-step stays on the tensors' device; nothing is read back to the host.
-`lax.scan` over frames becomes a Python loop.
+Port of `aslam_tpu/models/odometry.py`.  Both policies share `ransac_step`:
+2-NN ratio match (through the `hamming_top2` kernel on the card), duplicate
+resolution, Mahalanobis RANSAC.  ADAPTIVE_RBA (`rba_step`, `track_frame`,
+`track_sequence`) composes T_cw2 = T12 T_cw1 and refines it by motion-only
+BA.  ADAPTIVE_RICP escalates to GICP (or point-to-plane ICP) when RANSAC is
+poor (inliers < 20 or rmse*10 >= 7), warm-started from the RANSAC transform
+unless rmse*10 >= 20 (then from the identity), and runs no motion-only BA:
+
+  * `ricp_step` branches on the host: one `read_host` of the predicate, and
+    one of `converged` when it escalated;
+  * `ricp_fused` reads nothing: where the reference puts the refinement
+    under `lax.cond`, it computes the refinement on every frame and selects
+    with `torch.where`, so the frame keeps a fixed sequence of launches.
+
+Every other step stays on the tensors' device.  `lax.scan` over frames
+becomes a Python loop.
 """
 
 from __future__ import annotations
@@ -15,8 +25,9 @@ from typing import NamedTuple
 import torch
 
 from aslam_tpu_torch.config import SystemConfig
+from aslam_tpu_torch.device import read_host
 from aslam_tpu_torch.models.frame import FrameData, _make_frame_impl
-from aslam_tpu_torch.ops import ba, matching, ransac
+from aslam_tpu_torch.ops import ba, icp, matching, ransac
 from aslam_tpu_torch.utils.se3 import T_inv, transform_points
 
 
@@ -31,23 +42,114 @@ class OdometryResult(NamedTuple):
     ba_inliers: torch.Tensor  # scalar int32 (motion-only BA inlier count)
 
 
+def ransac_step(f1: FrameData, f2: FrameData,
+                generator: torch.Generator | None, cfg: SystemConfig,
+                draws: torch.Tensor | None = None):
+    """Match + RANSAC, the shared first stage of every policy.  `draws`
+    [H,S] optionally fixes the RANSAC samples (see `ops/ransac.py`).
+    -> (Matches, pair_valid [M] bool, RansacResult)."""
+    m = matching.knn_ratio_match(
+        f1.feat.desc, f1.feat.valid, f2.feat.desc, f2.feat.valid,
+        ratio=cfg.matcher.ratio_frame, max_dist=float(cfg.matcher.th_high))
+    m = matching.resolve_duplicates(m, f2.feat.desc.shape[0])
+    tgt = torch.clamp(m.target_idx, min=0).long()
+    pair_valid = m.valid & f1.has_depth & f2.has_depth[tgt]
+    res = ransac.ransac_align(f1.p3d, f2.p3d[tgt], pair_valid, generator,
+                              cfg.ransac, cfg.camera, draws=draws)
+    return m, pair_valid, res
+
+
+def _icp_refine_step(f1: FrameData, f2: FrameData, pair_valid: torch.Tensor,
+                     T_init: torch.Tensor, cfg: SystemConfig) -> icp.ICPResult:
+    """Refine T12 from `T_init` by `cfg.icp.method`: frame 1's depth-valid
+    matched keypoints (with normals from its depth map, for GICP) onto frame
+    2's depth map."""
+    cam = cfg.camera
+    src_valid = f1.has_depth & pair_valid
+    if cfg.icp.method == "gicp":
+        nm = icp.normal_map(icp.backproject_depth(f1.depth_map, cam),
+                            f1.depth_map > 0.05)
+        H, W = f1.depth_map.shape
+        xi = torch.clamp(torch.round(f1.feat.xy[:, 0]), 0, W - 1).long()
+        yi = torch.clamp(torch.round(f1.feat.xy[:, 1]), 0, H - 1).long()
+        return icp.gicp_refine(f1.p3d, nm[yi, xi], src_valid, f2.depth_map,
+                               T_init, cam, cfg.icp)
+    return icp.icp_refine(f1.p3d, src_valid, f2.depth_map, T_init, cam, cfg.icp)
+
+
+def _escalation(res: ransac.RansacResult, cfg: SystemConfig):
+    """The ADAPTIVE_RICP predicate on the device -> (escalate, warm) scalar
+    bools: refine when RANSAC is poor; start from its transform unless its
+    rmse is past `restart_rmse`."""
+    escalate = (res.n_inliers < cfg.icp.escalate_min_inliers) | (
+        res.rmse * 10.0 >= cfg.icp.escalate_rmse * 10.0)
+    warm = res.rmse * 10.0 < cfg.icp.restart_rmse * 10.0
+    return escalate, warm
+
+
+def _ricp_result(f1, m, res, T12) -> "OdometryResult":
+    return OdometryResult(
+        T_cw2=T12 @ f1.T_cw,
+        T12=T12,
+        match_idx=m.target_idx,
+        inliers=res.inliers,
+        n_matches=torch.sum(m.valid.to(torch.int32)),
+        n_inliers=res.n_inliers,
+        rmse=res.rmse,
+        ba_inliers=torch.zeros((), dtype=torch.int32, device=T12.device),
+    )
+
+
+def ricp_step(f1: FrameData, f2: FrameData, generator: torch.Generator | None,
+              cfg: SystemConfig,
+              draws: torch.Tensor | None = None) -> OdometryResult:
+    """ADAPTIVE_RICP with the branch on the host.  Each call that escalates
+    adds one to `ricp_step.escalated`, each refinement that converged one to
+    `ricp_step.converged`."""
+    m, pair_valid, res = ransac_step(f1, f2, generator, cfg, draws=draws)
+    escalate, warm = read_host(*_escalation(res, cfg))
+    T12 = res.T12
+    if escalate:
+        eye = torch.eye(4, dtype=T12.dtype, device=T12.device)
+        icp_res = _icp_refine_step(f1, f2, pair_valid, T12 if warm else eye,
+                                   cfg)
+        ricp_step.escalated += 1
+        if read_host(icp_res.converged)[0]:
+            ricp_step.converged += 1
+            T12 = icp_res.T12
+        elif not warm:
+            T12 = eye
+    return _ricp_result(f1, m, res, T12)
+
+
+ricp_step.escalated = 0
+ricp_step.converged = 0
+
+
+def ricp_fused(f1: FrameData, f2: FrameData, generator: torch.Generator | None,
+               cfg: SystemConfig,
+               draws: torch.Tensor | None = None) -> OdometryResult:
+    """ADAPTIVE_RICP with no host read: the refinement runs on every frame
+    and `torch.where` keeps it only where the predicate holds and it
+    converged."""
+    m, pair_valid, res = ransac_step(f1, f2, generator, cfg, draws=draws)
+    escalate, warm = _escalation(res, cfg)
+    eye = torch.eye(4, dtype=res.T12.dtype, device=res.T12.device)
+    fallback = torch.where(warm, res.T12, eye)
+    icp_res = _icp_refine_step(f1, f2, pair_valid, fallback, cfg)
+    refined = torch.where(icp_res.converged, icp_res.T12, fallback)
+    return _ricp_result(f1, m, res, torch.where(escalate, refined, res.T12))
+
+
 def rba_step(f1: FrameData, f2: FrameData, generator: torch.Generator | None,
              cfg: SystemConfig,
              draws: torch.Tensor | None = None) -> OdometryResult:
     """RANSAC + motion-only BA refinement.  `draws` [H,S] optionally fixes
     the RANSAC samples (see `ops/ransac.py`)."""
     cam = cfg.camera
-    m = matching.knn_ratio_match(
-        f1.feat.desc, f1.feat.valid, f2.feat.desc, f2.feat.valid,
-        ratio=cfg.matcher.ratio_frame, max_dist=float(cfg.matcher.th_high))
-    m = matching.resolve_duplicates(m, f2.feat.desc.shape[0])
+    m, pair_valid, res = ransac_step(f1, f2, generator, cfg, draws=draws)
     tgt = torch.clamp(m.target_idx, min=0).long()
-
     p1 = f1.p3d
-    p2 = f2.p3d[tgt]
-    pair_valid = m.valid & f1.has_depth & f2.has_depth[tgt]
-    res = ransac.ransac_align(p1, p2, pair_valid, generator, cfg.ransac, cam,
-                              draws=draws)
 
     T_cw2_init = res.T12 @ f1.T_cw
     # motion-only BA on the RANSAC inliers: world points from frame-1 depth,

@@ -1,17 +1,34 @@
-"""SE(3) relative-pose edges: residual and analytic Jacobians.
+"""Pose-graph optimization over SE(3), the backbone of loop correction.
 
-Port of the edge part of `aslam_tpu/ops/pose_graph.py` (`edge_residual`,
-`_edge_jacobians` and their adjoints), which the local BA's odometry-chain
-regularizer (`ops/lba.py::chain_terms`) uses.  The pose-graph solvers
-(`optimize`, `optimize_cg`) wait for loop closing.  Every function
-broadcasts over leading batch dimensions, where the reference vmaps.
+Port of `aslam_tpu/ops/pose_graph.py`.  Variables are world-to-camera poses
+T_i; constraints are relative measurements M_ij ~= T_i T_j^-1 with scalar
+weights.  The residual is r_e = log(M_e^-1 T_i T_j^-1) with analytic
+first-order Jacobians (`_edge_jacobians`, also used by the local BA's
+odometry-chain regularizer, `ops/lba.py::chain_terms`).  `optimize`
+assembles the damped normal equations with `index_add_` (duplicate indices
+accumulate) and solves them dense with `torch.linalg.solve_ex`, which does
+not read the device.  The matrix-free `optimize_cg` of the reference (maps
+above 256 keyframes) is not ported yet.  Every function broadcasts over
+leading batch dimensions, where the reference vmaps.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from aslam_tpu_torch.utils.se3 import T_inv, hat, se3_log
+from aslam_tpu_torch.utils.se3 import T_inv, hat, se3_exp, se3_log
+
+
+class PoseGraph(NamedTuple):
+    T: torch.Tensor           # [K,4,4] poses (T_cw)
+    node_valid: torch.Tensor  # [K] bool
+    node_fixed: torch.Tensor  # [K] bool (gauge anchors)
+    e_i: torch.Tensor         # [E] int32
+    e_j: torch.Tensor         # [E] int32
+    e_meas: torch.Tensor      # [E,4,4] measured T_i T_j^-1
+    e_w: torch.Tensor         # [E] float32 weight (0 = inactive)
 
 
 def edge_residual(T_i: torch.Tensor, T_j: torch.Tensor,
@@ -47,3 +64,54 @@ def _edge_jacobians(T_i: torch.Tensor, T_j: torch.Tensor, M: torch.Tensor):
     Ji = (eye - 0.5 * ad_r) @ _Ad(T_inv(M))
     Jj = -(eye + 0.5 * ad_r)
     return Ji, Jj
+
+
+def _edge_weights(pg: PoseGraph) -> torch.Tensor:
+    e_i, e_j = pg.e_i.to(torch.int64), pg.e_j.to(torch.int64)
+    return pg.e_w * pg.node_valid[e_i] * pg.node_valid[e_j]
+
+
+def optimize(pg: PoseGraph, iters: int = 20, lam: float = 1e-6) -> PoseGraph:
+    """Gauss-Newton on the dense [6K,6K] system; fixed and invalid nodes
+    keep identity rows, so their update is exactly zero."""
+    K = pg.T.shape[0]
+    e_i, e_j = pg.e_i.to(torch.int64), pg.e_j.to(torch.int64)
+    w = _edge_weights(pg)
+    free = pg.node_valid & ~pg.node_fixed
+    free6 = free[:, None].expand(K, 6).reshape(-1)
+    both = free6[:, None] & free6[None, :]
+    z = dict(dtype=pg.T.dtype, device=pg.T.device)
+
+    T = pg.T
+    for _ in range(iters):
+        T_i, T_j = T[e_i], T[e_j]
+        r = edge_residual(T_i, T_j, pg.e_meas)                   # [E,6]
+        Ji, Jj = _edge_jacobians(T_i, T_j, pg.e_meas)            # [E,6,6]
+        wJi = w[:, None, None] * Ji
+        wJj = w[:, None, None] * Jj
+
+        H = torch.zeros(K * K, 6, 6, **z)
+        for a, wJ, b, J in ((e_i, wJi, e_i, Ji), (e_j, wJj, e_j, Jj),
+                            (e_i, wJi, e_j, Jj), (e_j, wJj, e_i, Ji)):
+            H.index_add_(0, a * K + b, torch.einsum("eri,erj->eij", wJ, J))
+        b = torch.zeros(K, 6, **z)
+        b.index_add_(0, e_i, torch.einsum("eri,er->ei", wJi, r))
+        b.index_add_(0, e_j, torch.einsum("eri,er->ei", wJj, r))
+
+        Hm = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+        Hm = torch.where(both, Hm, 0.0)
+        Hm = Hm + torch.diag(torch.where(free6, lam, 1.0))
+        Hm = Hm + torch.diag(torch.where(
+            free6, 1e-8 + lam * torch.abs(torch.diagonal(Hm)), 0.0))
+        rhs = torch.where(free6, b.reshape(K * 6), 0.0)
+
+        dx = -torch.linalg.solve_ex(Hm, rhs)[0].reshape(K, 6)
+        dx = torch.where(torch.isfinite(dx) & free[:, None], dx, 0.0)
+        T = se3_exp(dx) @ T
+    return pg._replace(T=T)
+
+
+def total_error(pg: PoseGraph) -> torch.Tensor:
+    r = edge_residual(pg.T[pg.e_i.to(torch.int64)],
+                      pg.T[pg.e_j.to(torch.int64)], pg.e_meas)
+    return torch.sum(_edge_weights(pg) * torch.sum(r * r, dim=-1))

@@ -1,12 +1,15 @@
-"""Where a config-2 SLAM frame's time goes on the card.
+"""Where a SLAM frame's time, and a loop-closing sync's, go on the card.
 
-    python -m aslam_tpu_torch.profile_slam [--frames 40] [--out FILE.json]
+    python -m aslam_tpu_torch.profile_slam [--frames 40] [--config 2|3]
+        [--loop-closing] [--looped-map] [--out FILE.json]
 
 Runs the port's `DeviceSlam` (`process`, inline mapping) at full width with
-the JAX bench's config-2 settings minus loop closing (`bench_config2`) over
-the bench's walk (`bench_walk`) on one card: after a warm-up, 12 frames
-under torch's sync debug mode (every synchronising call counted), then
-three passes over `--frames` frames:
+the JAX bench's config-2 settings (`bench_config2`; `--config 3` puts the
+ADAPTIVE_RICP odometry in, `--loop-closing` turns loop closing on with the
+shipped vocabulary and a sync every 16 frames) over the bench's walk
+(`bench_walk`) on one card: after a warm-up, 12 frames under torch's sync
+debug mode (every synchronising call counted), then three passes over
+`--frames` frames:
 
   1. stage times: the engine's stage functions are wrapped with a host
      timer that synchronises the card before and after each call, so each
@@ -21,6 +24,11 @@ three passes over `--frames` frames:
      events: `projection_match` at proj_match_cap x 1024, the grouped
      assembly and the Schur solve of the last local BA, and the
      `pose_only_ba` of `track_local_map`.
+
+With `--looped-map` it then times the stages of the loop-closing syncs over
+a hand-built looped map at full capacities (`looped_map`, 24 keyframes,
+windows of four through `LoopClosing.process_keyframes_batch`): database
+rebuild, window query, verification, pose graph, correction, global BA.
 
 Prints one table per pass and writes everything to `--out` as JSON.  Needs
 a CUDA card; it imports nothing of JAX.
@@ -41,20 +49,110 @@ import torch
 from aslam_tpu_torch.config import BAConfig, CameraModel, SystemConfig
 
 
-def bench_config2() -> SystemConfig:
-    """The JAX bench's config 2 (`bench.py:312-338`) without loop closing:
-    640x480, 1024 keypoints, MapConfig() capacities (256 keyframes, 32768
-    landmarks, projection cap 8192), a 32+32-camera / 2048-point window,
-    cull and local-BA cadence 2, one KF-cull round, 3+5 LBA iterations."""
+def bench_config2(loop_closing: bool = False) -> SystemConfig:
+    """The JAX bench's config 2 (`bench.py:312-338`): 640x480, 1024
+    keypoints, MapConfig() capacities (256 keyframes, 32768 landmarks,
+    projection cap 8192), a 32+32-camera / 2048-point window, cull and
+    local-BA cadence 2, one KF-cull round, 3+5 LBA iterations.  With
+    `loop_closing` it is the bench's in full: loop closing on, with the
+    shipped 10^4-word vocabulary."""
     cam = CameraModel(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640,
                       height=480)
-    cfg = SystemConfig(camera=cam)
+    cfg = SystemConfig(camera=cam, use_loop_closing=loop_closing)
     return cfg.replace(
         ba=BAConfig(max_window_cams=32, max_fixed_cams=32,
                     max_window_points=2048, max_edges=8192,
                     local_iters_1=3, local_iters_2=5),
         map=dataclasses.replace(cfg.map, lm_cull_every=2, kf_cull_every=2,
-                                lba_every=2, kf_cull_rounds=1))
+                                lba_every=2, kf_cull_rounds=1),
+        loop=dataclasses.replace(cfg.loop, use_pretrained_vocab=loop_closing))
+
+
+def bench_config3(loop_closing: bool = False) -> SystemConfig:
+    """Config 3: `bench_config2` with the ADAPTIVE_RICP odometry (RANSAC,
+    then GICP where RANSAC is poor) in place of RANSAC + motion-only BA.
+    With `loop_closing` it is the CLI's fullest mode, slam+gicp."""
+    return bench_config2(loop_closing).replace(use_gicp=True)
+
+
+def looped_map(cfg: SystemConfig, device, seed: int = 0, n_kfs: int = 20,
+               n_pts: int = 600, drift_per_step: float = 0.008):
+    """A hand-built map with a loop to close, the recipe of
+    `tests/test_loopclosing.py::build_looped_map` in numpy: keyframes
+    0..n-1 go out along +x and come back, the last at the true pose of the
+    first; their estimated poses accumulate drift.  Each keyframe observes
+    the points in front of its true pose (a narrow band, up to
+    max_keypoints of them), the same world point always with the same
+    descriptor; a point unseen for more than 3 keyframes gets a fresh
+    duplicate landmark, as before a loop closure in the real pipeline.
+    -> (MapState on `device`, T_true [n,4,4], T_est [n,4,4], drift of the
+    last keyframe in metres)."""
+    import torch as _torch
+
+    from aslam_tpu_torch.models import mapstate as ms
+
+    rng = np.random.default_rng(seed)
+    cam = cfg.camera
+    M = cfg.extractor.max_keypoints
+    pts = np.stack([rng.uniform(-1.0, 3.0, n_pts), rng.uniform(-1.0, 1.0, n_pts),
+                    rng.uniform(1.5, 3.5, n_pts)], -1).astype(np.float32)
+    descs = rng.integers(0, 2**32, (n_pts, 8), dtype=np.uint32)
+    xs = np.concatenate([np.linspace(0, 2.0, n_kfs // 2),
+                         np.linspace(2.0, 0.0, n_kfs - n_kfs // 2)])
+    xs[-1] = 0.0
+    T_true = np.tile(np.eye(4, dtype=np.float32), (n_kfs, 1, 1))
+    T_true[:, 0, 3] = -xs          # camera at world x: T_cw translation -x
+    T_est = T_true.copy()
+    acc = np.zeros(3, np.float32)
+    for i in range(1, n_kfs):
+        acc += rng.normal(0, drift_per_step, 3).astype(np.float32)
+        T_est[i, :3, 3] += acc
+    drift_final = float(np.linalg.norm(T_est[-1, :3, 3] - T_true[-1, :3, 3]))
+
+    m = ms.init_map(cfg, "cpu")
+    a = {name: getattr(m, name).numpy().copy() for name in m._fields}
+    a["kf_desc"] = a["kf_desc"].view(np.uint32)
+    a["lm_desc"] = a["lm_desc"].view(np.uint32)
+    next_lm = 0
+    lm_of_point = np.full(n_pts, -1, np.int64)
+    last_seen = np.full(n_pts, -(10**6), np.int64)
+    for k in range(n_kfs):
+        pc = pts @ T_true[k, :3, :3].T + T_true[k, :3, 3]
+        z = pc[:, 2]
+        inv_z = np.float32(1.0) / np.where(np.abs(z) > 1e-9, z,
+                                           np.float32(1e-9))
+        uv = np.stack([cam.fx * pc[:, 0] * inv_z + cam.cx,
+                       cam.fy * pc[:, 1] * inv_z + cam.cy], -1).astype(np.float32)
+        vis = (z > 0.2) & (uv[:, 0] > 5) & (uv[:, 0] < cam.width - 5) \
+            & (uv[:, 1] > 5) & (uv[:, 1] < cam.height - 5) \
+            & (np.abs(pts[:, 0] - xs[k]) < 0.8)
+        sel = np.nonzero(vis)[0][:M]
+        n_f = len(sel)
+        fresh = (lm_of_point[sel] < 0) | (k - last_seen[sel] > 3)
+        new_ids = next_lm + np.arange(int(fresh.sum()))
+        next_lm += len(new_ids)
+        lm_of_point[sel[fresh]] = new_ids
+        a["lm_pos"][new_ids] = pts[sel[fresh]]
+        a["lm_desc"][new_ids] = descs[sel[fresh]]
+        a["lm_valid"][new_ids] = True
+        a["lm_first_kf"][new_ids] = k
+        last_seen[sel] = k             # continuous visibility keeps the lm
+        a["kf_xy"][k, :n_f] = uv[sel]
+        a["kf_z"][k, :n_f] = z[sel]
+        a["kf_desc"][k, :n_f] = descs[sel]
+        a["kf_kp_valid"][k, :n_f] = True
+        a["kf_lm"][k, :n_f] = lm_of_point[sel]
+        kz = a["kf_z"][k]
+        a["kf_ur"][k] = np.where(
+            kz > 0, a["kf_xy"][k, :, 0] - cam.bf / np.maximum(kz, 1e-6), -1.0)
+        a["kf_T_cw"][k] = T_est[k]
+        a["kf_valid"][k] = True
+        a["kf_id"][k] = k
+    a["kf_desc"] = a["kf_desc"].view(np.int32)
+    a["lm_desc"] = a["lm_desc"].view(np.int32)
+    m = ms.MapState(**{name: _torch.from_numpy(v).to(device)
+                       for name, v in a.items()})
+    return ms.rebuild_observer_index(m), T_true, T_est, drift_final
 
 
 def bench_walk(cam: CameraModel, n: int):
@@ -78,13 +176,24 @@ def bench_walk(cam: CameraModel, n: int):
 # (module, attribute) of every timed stage: the attribute the engine looks
 # up at call time, so replacing it reaches every caller on the path
 def _stages():
-    from aslam_tpu_torch.models import device_slam, frame, localmapping
+    from aslam_tpu_torch.models import (device_slam, frame, localmapping,
+                                        loopclosing)
     from aslam_tpu_torch.models import mapstate as ms
-    from aslam_tpu_torch.ops import ba, lba, matching
+    from aslam_tpu_torch.ops import (ba, global_ba, icp, lba, matching,
+                                     pose_graph, ransac)
 
     return [
         (device_slam, "slam_step_frame"), (frame, "_make_frame_impl"),
-        (device_slam, "rba_step"), (device_slam, "track_local_map"),
+        (device_slam, "rba_step"), (device_slam, "ricp_fused"),
+        (ransac, "ransac_align"), (icp, "gicp_refine"), (icp, "icp_refine"),
+        (icp, "normal_map"),
+        (device_slam.DeviceSlam, "_background_mapping"),
+        (loopclosing.LoopClosing, "process_keyframes_batch"),
+        (loopclosing, "add_keyframes_batch"), (loopclosing, "batch_query"),
+        (loopclosing, "verify_and_gate"), (loopclosing, "build_pose_graph"),
+        (pose_graph, "optimize"), (loopclosing, "correct_map"),
+        (global_ba, "global_ba"), (global_ba, "gn_cg_step"),
+        (device_slam, "track_local_map"),
         (matching, "projection_match"), (ba, "pose_only_ba"),
         (ms, "insert_keyframe"), (ms, "create_landmarks"),
         (device_slam, "map_keyframe_body"),
@@ -187,11 +296,63 @@ def _events_ms(fn, iters=20):
 def _run(cfg, dev, imgs, deps):
     from aslam_tpu_torch.models.device_slam import DeviceSlam
 
-    slam = DeviceSlam(cfg, dev, seed=0, sync_every=10**9)
+    slam = DeviceSlam(cfg, dev, seed=0,
+                      sync_every=16 if cfg.use_loop_closing else 10**9)
     for i in range(len(imgs)):
         slam.process(imgs[i], deps[i])
     torch.cuda.synchronize()
     return slam
+
+
+def _print_stages(stages, per):
+    print(f"{'stage path':72s} {'calls':>5s} {'ms/call':>9s} {'ms/' + per:>9s}")
+    for p, s in stages.items():
+        print(f"{p:72s} {s['calls']:5d} {s['ms_per_call']:9.2f} "
+              f"{s['ms_per_unit']:9.2f}")
+
+
+def _stage_dict(timer, units):
+    return {p: {"calls": timer.calls[p], "ms_total": 1e3 * t,
+                "ms_per_call": 1e3 * t / timer.calls[p],
+                "ms_per_unit": 1e3 * t / units}
+            for p, t in sorted(timer.total.items())}
+
+
+def profile_looped_map(dev, card, n_kfs=24, n_pts=2500):
+    """Stage times of the loop-closing syncs over the looped map at the
+    bench's full config 2 -> dict for the JSON."""
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.loopclosing import LoopClosing
+
+    cfg = bench_config2(loop_closing=True)
+    K = cfg.map.max_keyframes
+    arange = torch.arange(K, device=dev)
+
+    def run(timer=None):
+        m, *_ = looped_map(cfg, dev, seed=0, n_kfs=n_kfs, n_pts=n_pts)
+        lc = LoopClosing(cfg, dev)
+        for lo in range(0, n_kfs, 4):
+            ids = list(range(lo, lo + 4))
+            m_k = m._replace(kf_valid=m.kf_valid & (arange < lo + 4))
+            out = lc.process_keyframes_batch(m_k, ids, ids, n_live=lo + 4)
+            m = out._replace(kf_valid=m.kf_valid)
+        torch.cuda.synchronize()
+        return lc
+
+    run()                                                    # warm-up
+    reads = read_host.count
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimer() as timer:
+        lc = run()
+    n_syncs = n_kfs // 4
+    out = {"stages": _stage_dict(timer, n_syncs), "syncs": n_syncs,
+           "loops": lc.loops, "host_reads": read_host.count - reads,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"looped map: {n_kfs} keyframes in {n_syncs} syncs, loops "
+          f"{lc.loops}, {out['host_reads']} host reads, peak "
+          f"{out['peak_gib']:.3f} GiB [{card}]")
+    _print_stages(out["stages"], "sync")
+    return out
 
 
 def main():
@@ -200,6 +361,9 @@ def main():
     ap.add_argument("--profiled-frames", type=int, default=8,
                     help="frames under torch.profiler (its event processing "
                     "is slow at ~45k kernels a frame)")
+    ap.add_argument("--config", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--loop-closing", action="store_true")
+    ap.add_argument("--looped-map", action="store_true")
     ap.add_argument("--out", default="profile_slam.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -207,16 +371,18 @@ def main():
     import subprocess
 
     from aslam_tpu_torch.device import read_host
-    from aslam_tpu_torch.ops import ba, lba, matching
+    from aslam_tpu_torch.ops import ba, icp, lba, matching
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = bench_config2()
+    cfg = (bench_config3 if args.config == 3 else bench_config2)(
+        args.loop_closing)
     imgs, deps, _ = bench_walk(cfg.camera, args.frames)
     _run(cfg, dev, imgs[:12], deps[:12])                    # warm-up
-    out = {"card": card, "frames": args.frames}
+    out = {"card": card, "frames": args.frames, "config": args.config,
+           "loop_closing": args.loop_closing}
 
     # 0. synchronising calls the engine makes
     reads = read_host.count
@@ -239,18 +405,13 @@ def main():
     n_tracked = args.frames - 1
     n_kf = int(sum(c for p, c in timer.calls.items()
                    if p.endswith("map_keyframe_body")))
-    out["stages"] = {p: {"calls": timer.calls[p], "ms_total": 1e3 * t,
-                         "ms_per_call": 1e3 * t / timer.calls[p]}
-                     for p, t in sorted(timer.total.items())}
+    out["stages"] = _stage_dict(timer, n_tracked)
     out["timed_wall_s"] = wall
     out["host_reads"] = read_host.count - reads
     out["keyframes_mapped"] = n_kf
     print(f"profile_slam: {args.frames} frames, {n_kf} keyframes mapped, "
           f"{out['host_reads']} host reads [{card}]")
-    print(f"{'stage path':72s} {'calls':>5s} {'ms/call':>9s} {'ms/frame':>9s}")
-    for p, s in out["stages"].items():
-        print(f"{p:72s} {s['calls']:5d} {s['ms_per_call']:9.2f} "
-              f"{s['ms_total'] / n_tracked:9.2f}")
+    _print_stages(out["stages"], "frame")
 
     # 2. device busy share under the profiler, no stage timers
     from torch.profiler import ProfilerActivity, profile
@@ -292,6 +453,12 @@ def main():
         if name in timer.last_args:
             a, kw = timer.last_args[name]
             ops[name] = (a, kw, getattr(lba, name))
+    for name in ("gicp_refine", "normal_map"):
+        if name in timer.last_args:
+            a, kw = timer.last_args[name]
+            ops[f"{name} ({a[0].shape[0]} points)" if name == "gicp_refine"
+                else f"{name} {tuple(a[0].shape[:2])}"] = (
+                a, kw, getattr(icp, name))
     pose_calls = [p for p in timer.calls if p.endswith(
         "track_local_map/pose_only_ba")]
     if pose_calls:
@@ -304,6 +471,8 @@ def main():
         print(f"op: {name:44s} {ms:9.3f} ms (CUDA events) [{card}]")
     out["n_kfs_live"] = int(slam.state.n_kfs)
     out["lm_live"] = int(slam.state.m.lm_valid.sum())
+    if args.looped_map:
+        out["looped_map"] = profile_looped_map(dev, card)
     import os
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

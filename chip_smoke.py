@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's config-1 VO and config-2 SLAM once on a CUDA card.
+"""Drive the PyTorch port's paths once on a CUDA card: config-1 VO, config-2
+SLAM, config-3 (GICP escalation) VO and SLAM, and loop closing.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -31,6 +32,26 @@ Phases, one printed line each (or more, for phases 3 and 4):
      a local BA, and raw and rebuilt ATE below 3 cm and within 1.5x the JAX
      package's; the stream run the chunked run's poses within 1 mm and its
      keyframe count.
+  5. config 3 at full width (10 GICP iterations): (a) the ADAPTIVE_RICP
+     odometry over phase 3's 32 frames, frame pair by frame pair, through
+     `ricp_step` (branch on the host) and `ricp_fused` (no host read), with
+     the escalation forced on every frame (`escalate_min_inliers=10**6`) and
+     at the default thresholds: ATE below 1 cm and within 1.5x the JAX
+     package's, one kernel launch per tracked frame, every forced frame
+     escalated and converged, and `ricp_fused` equal to `ricp_step` to 1e-5;
+     (b) `DeviceSlam` with `bench_config3()` over phase 4's 64 frames in two
+     chunks, held to phase 4's gates against the JAX package's config 3;
+  6. loop closing at full width: (a) `DeviceSlam` with the JAX bench's config
+     2 in full (`bench_config2(loop_closing=True)`: shipped 10^4-word
+     vocabulary, K = 256) over the 64 frames in two chunks, so the sync
+     cadence runs after each chunk and in `finish()`: phase 4's gates, the
+     database holding every live keyframe, the reads of each sync; (b) a
+     hand-built looped map at full capacities (24 keyframes out and back
+     with drifted poses, ~1000 features each, M = 1024, L = 32768, K = 256)
+     through `LoopClosing.process_keyframes_batch` in windows of four: a
+     loop closed between the return leg and the outbound leg, the drift at
+     the closing keyframe cut by >= 20%, `map_chi2` around the post-loop
+     global BA.
 Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
@@ -76,6 +97,26 @@ JAX_SLAM_ATE_M = 0.0032870445811745406
 JAX_SLAM_ATE_REBUILT_M = 0.0035003549024261184
 N_SLAM = 64
 N_STREAM = 16
+
+# ATE of the JAX package on the frames of phases 5 and 6, run on the CPU with
+# jax 0.9.0 from the repository root by `scripts/port_reference_ate.py`:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_reference_ate.py ricp
+#     the ADAPTIVE_RICP odometry (`ricp_fused`) on phase 3's 32 frames, frame
+#     pair by frame pair, at the default thresholds and with the escalation
+#     forced on every frame (escalate_min_inliers=10**6)
+JAX_RICP_ATE_M = {"default": 0.003546169572370281,
+                  "forced": 0.006648484874044746}
+#   ... port_reference_ate.py slam-gicp   (204 s; 6 keyframes inserted, 7 live)
+#     `DeviceSlam` with config 3 on the 64 frames of `bench_walk`, `process`
+#     per frame, seed 0: raw and rebuilt
+JAX_SLAM3_ATE_M = (0.002102473097171833, 0.0022858326225181284)
+#   ... port_reference_ate.py slam-loop   (196 s; 6 inserted, 7 in the database)
+#     the same with the bench's config 2 in full (loop closing, shipped
+#     vocabulary) and sync_every=32: the cadence runs after frames 32 and 64,
+#     as it does after each chunk here
+JAX_SLAM_LOOP_ATE_M = (0.0032870445811745406, 0.0035003549024261184)
+N_LOOP_KFS = 24
+N_LOOP_PTS = 2500
 
 
 def phase1_device_and_build():
@@ -294,10 +335,10 @@ def phase3_vo(dev, card):
     poses = torch.cat([f0.T_cw[None], seq.T_cw]).cpu().numpy()
     ate_seq = _check_run("track_sequence", poses, seq.n_matches.tolist(),
                          launches_seq, gt, start.elapsed_time(end) / 1e3, card)
-    return launches_stream + launches_seq, ate_stream, ate_seq
+    return launches_stream + launches_seq, (cfg, imgs_u8, depths_u16, gt)
 
 
-def _slam_run(mode, cfg, dev, imgs, deps, chunk=None):
+def _slam_run(mode, cfg, dev, imgs, deps, chunk=None, sync_every=129):
     """One DeviceSlam run with every counter zeroed just before it ->
     (DeviceSlam, traj, stats, counts, seconds)."""
     from aslam_tpu_torch.device import read_host
@@ -308,7 +349,7 @@ def _slam_run(mode, cfg, dev, imgs, deps, chunk=None):
     torch.cuda.synchronize()
     hamming_top2.launches = read_host.count = local_ba.runs = 0
     t0 = time.perf_counter()
-    slam = DeviceSlam(cfg, dev, seed=0, sync_every=129)
+    slam = DeviceSlam(cfg, dev, seed=0, sync_every=sync_every)
     if chunk is None:
         for i in range(len(imgs)):
             slam.process(imgs[i], deps[i], t=0.033 * i)
@@ -318,13 +359,15 @@ def _slam_run(mode, cfg, dev, imgs, deps, chunk=None):
                                ts=[0.033 * i for i in range(c0, c0 + chunk)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    traj, stats = slam.finish()
+    # with loop closing, finish() runs the cadence once more and reads
     counts = {"launches": hamming_top2.launches, "reads": read_host.count,
               "lba": local_ba.runs}
-    traj, stats = slam.finish()
     return slam, traj, stats, counts, seconds
 
 
-def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card):
+def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card,
+                phase=4, jax_ate=(JAX_SLAM_ATE_M, JAX_SLAM_ATE_REBUILT_M)):
     from aslam_tpu_torch.utils import trajectory
 
     if not np.isfinite(traj).all():
@@ -344,9 +387,9 @@ def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card):
         trajectory.camera_centers(gt))
     m = slam.state.m
     culled = len(slam.culled_registry())
-    print(f"phase 4: {mode}: {len(traj)} frames, ATE {ate * 100:.3f} cm, "
-          f"rebuilt {ate_r * 100:.3f} cm (JAX {JAX_SLAM_ATE_M * 100:.3f} / "
-          f"{JAX_SLAM_ATE_REBUILT_M * 100:.3f} cm); {inserted + 1} KFs "
+    print(f"phase {phase}: {mode}: {len(traj)} frames, ATE {ate * 100:.3f} cm, "
+          f"rebuilt {ate_r * 100:.3f} cm (JAX {jax_ate[0] * 100:.3f} / "
+          f"{jax_ate[1] * 100:.3f} cm); {inserted + 1} KFs "
           f"inserted, {n_kfs} live, {culled} culled; "
           f"{int(m.lm_valid.sum())} landmarks live of "
           f"{slam.state.next_lm.item()} created; {counts['lba']} local BAs; "
@@ -357,11 +400,18 @@ def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card):
     return ate, ate_r, inserted
 
 
-def phase4_slam(dev, card):
-    from aslam_tpu_torch.profile_slam import bench_config2, bench_walk
+def _gate_slam_ate(mode, ate, ate_r, jax_ate):
+    for name, a, ref in (("raw", ate, jax_ate[0]), ("rebuilt", ate_r, jax_ate[1])):
+        if not (a < 0.03 and a <= 1.5 * ref):
+            raise AssertionError(f"{mode}: {name} ATE {a:.5f} m vs JAX "
+                                 f"{ref:.5f} m")
+
+
+def phase4_slam(dev, card, walk):
+    from aslam_tpu_torch.profile_slam import bench_config2
 
     cfg = bench_config2()
-    imgs, deps, gt = bench_walk(cfg.camera, N_SLAM)
+    imgs, deps, gt = walk
 
     # warm-up: allocator, cuBLAS / cuSOLVER handles, one local BA
     _slam_run("warm-up", cfg, dev, imgs[:12], deps[:12], chunk=12)
@@ -374,11 +424,8 @@ def phase4_slam(dev, card):
     if inserted < 3 or chunked[3]["lba"] < 1:
         raise AssertionError(f"chunked: {inserted} KFs inserted, "
                              f"{chunked[3]['lba']} local BAs")
-    for name, a, ref in (("raw", ate, JAX_SLAM_ATE_M),
-                         ("rebuilt", ate_r, JAX_SLAM_ATE_REBUILT_M)):
-        if not (a < 0.03 and a <= 1.5 * ref):
-            raise AssertionError(f"chunked: {name} ATE {a:.5f} m vs JAX "
-                                 f"{ref:.5f} m")
+    _gate_slam_ate("chunked", ate, ate_r,
+                   (JAX_SLAM_ATE_M, JAX_SLAM_ATE_REBUILT_M))
 
     stream = _slam_run("stream", cfg, dev, imgs[:N_STREAM], deps[:N_STREAM])
     _check_slam(f"process x{N_STREAM}", *stream, gt[:N_STREAM], card)
@@ -395,6 +442,208 @@ def phase4_slam(dev, card):
     return chunked[3]["launches"] + stream[3]["launches"]
 
 
+def _ricp_run(policy, cfg, dev, imgs_d, depths_d):
+    """The ADAPTIVE_RICP odometry over a recorded sequence, frame pair by
+    frame pair (`make_frame`, then `policy`), with every counter zeroed just
+    before -> (poses [T,4,4], results per tracked frame, counts, seconds)."""
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.extractor import init_grid_thresholds
+    from aslam_tpu_torch.models.frame import make_frame, with_pose
+    from aslam_tpu_torch.models.odometry import ricp_step
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    hamming_top2.launches = read_host.count = 0
+    ricp_step.escalated = ricp_step.converged = 0
+    t0 = time.perf_counter()
+    grid = init_grid_thresholds(cfg.extractor, dev)
+    prev, poses, results = None, [], []
+    for i in range(imgs_d.shape[0]):
+        f, grid = make_frame(imgs_d[i], depths_d[i], cfg, grid)
+        if prev is not None:
+            res = policy(prev, f, gen, cfg)
+            f = with_pose(f, res.T_cw2)
+            results.append(res)
+        prev = f
+        poses.append(f.T_cw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"launches": hamming_top2.launches, "reads": read_host.count,
+              "escalated": ricp_step.escalated,
+              "converged": ricp_step.converged}
+    return torch.stack(poses).cpu().numpy(), results, counts, seconds
+
+
+def phase5_config3(dev, card, vo_frames, walk):
+    import dataclasses
+
+    from aslam_tpu_torch.models.odometry import (_escalation, ricp_fused,
+                                                 ricp_step)
+    from aslam_tpu_torch.profile_slam import bench_config3
+    from aslam_tpu_torch.utils import trajectory
+
+    # (a) the odometry alone, on phase 3's frames
+    cfg_vo, imgs_u8, depths_u16, gt = vo_frames
+    imgs_d = torch.from_numpy(imgs_u8).to(dev)
+    depths_d = torch.from_numpy(depths_u16).to(dev)
+    base = cfg_vo.replace(use_gicp=True)
+    forced = base.replace(icp=dataclasses.replace(
+        base.icp, escalate_min_inliers=10**6))
+    n_tracked = imgs_d.shape[0] - 1
+    launches = 0
+    _ricp_run(ricp_fused, forced, dev, imgs_d[:4], depths_d[:4])    # warm-up
+    for name, cfg in (("forced", forced), ("default", base)):
+        poses = {}
+        for policy in (ricp_step, ricp_fused):
+            mode = f"{policy.__name__} ({name} escalation)"
+            poses[policy], results, counts, seconds = _ricp_run(
+                policy, cfg, dev, imgs_d, depths_d)
+            launches += counts["launches"]
+            if not np.isfinite(poses[policy]).all():
+                raise AssertionError(f"{mode}: non-finite poses")
+            if counts["launches"] != n_tracked:
+                raise AssertionError(f"{mode}: {counts['launches']} hamming_top2 "
+                                     f"launches for {n_tracked} tracked frames")
+            # what the predicate said on each frame (read after the run)
+            n_esc = sum(int(_escalation(r, cfg)[0]) for r in results)
+            if policy is ricp_step and (
+                    counts["escalated"] != n_esc
+                    or counts["reads"] != n_tracked + counts["escalated"]):
+                raise AssertionError(f"{mode}: counted {counts}")
+            if policy is ricp_fused and counts["reads"] != 0:
+                raise AssertionError(f"{mode}: {counts['reads']} host reads")
+            if name == "forced" and (n_esc != n_tracked or (
+                    policy is ricp_step and counts["converged"] != n_tracked)):
+                raise AssertionError(f"{mode}: {n_esc} frames escalated, "
+                                     f"{counts['converged']} converged")
+            if min(int(r.n_matches) for r in results) < MIN_MATCHES:
+                raise AssertionError(f"{mode}: a frame had too few matches")
+            ate = trajectory.ate_rmse(trajectory.camera_centers(poses[policy]),
+                                      trajectory.camera_centers(gt))
+            ref = JAX_RICP_ATE_M[name]
+            if not (ate < 0.01 and ate <= 1.5 * ref):
+                raise AssertionError(f"{mode}: ATE {ate:.5f} m vs JAX {ref:.5f} m")
+            conv = (f"{counts['converged']} converged"
+                    if policy is ricp_step else "convergence not read")
+            print(f"phase 5: {mode}: {len(poses[policy])} frames, ATE "
+                  f"{ate * 100:.3f} cm (JAX {ref * 100:.3f} cm), {n_esc} of "
+                  f"{n_tracked} frames escalated, {conv}, "
+                  f"{counts['launches']} kernel launches, {counts['reads']} "
+                  f"host reads ({counts['reads'] / n_tracked:.2f} per tracked "
+                  f"frame), {len(poses[policy]) / seconds:.2f} fps [{card}]",
+                  flush=True)
+        d = np.abs(poses[ricp_fused] - poses[ricp_step]).max()
+        if not d < 1e-5:
+            raise AssertionError(f"ricp_fused vs ricp_step ({name}): max |dT| {d}")
+        print(f"phase 5: ricp_fused == ricp_step ({name} escalation): max |dT| "
+              f"{d:.2e} (tolerance 1e-5) [{card}]", flush=True)
+
+    # (b) the SLAM engine with the config-3 odometry
+    imgs, deps, gt_walk = walk
+    run = _slam_run("config 3", bench_config3(), dev, imgs, deps,
+                    chunk=N_SLAM // 2)
+    ate, ate_r, inserted = _check_slam(
+        f"config 3, process_chunk 2x{N_SLAM // 2}", *run, gt_walk, card,
+        phase=5, jax_ate=JAX_SLAM3_ATE_M)
+    if inserted < 3 or run[3]["lba"] < 1:
+        raise AssertionError(f"config 3: {inserted} KFs inserted, "
+                             f"{run[3]['lba']} local BAs")
+    _gate_slam_ate("config 3", ate, ate_r, JAX_SLAM3_ATE_M)
+    return launches + run[3]["launches"]
+
+
+def phase6_loop_closing(dev, card, walk):
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.loopclosing import LoopClosing
+    from aslam_tpu_torch.ops import global_ba
+    from aslam_tpu_torch.profile_slam import bench_config2, looped_map
+
+    cfg = bench_config2(loop_closing=True)
+
+    # (a) the engine with the sync cadence serving loop closing
+    imgs, deps, gt = walk
+    torch.cuda.reset_peak_memory_stats()
+    run = _slam_run("loop closing", cfg, dev, imgs, deps, chunk=N_SLAM // 2,
+                    sync_every=16)
+    slam, counts = run[0], run[3]
+    ate, ate_r, inserted = _check_slam(
+        f"loop closing, process_chunk 2x{N_SLAM // 2}", *run, gt, card,
+        phase=6, jax_ate=JAX_SLAM_LOOP_ATE_M)
+    _gate_slam_ate("loop closing", ate, ate_r, JAX_SLAM_LOOP_ATE_M)
+    lc = slam.loop_closing
+    in_db = int(lc.db.kf_in_db.sum())
+    if len(slam.sync_reads) < 3 or in_db != slam.last_n_kfs or in_db < 4:
+        raise AssertionError(f"loop closing: syncs {slam.sync_reads}, "
+                             f"{in_db} KFs in the database, "
+                             f"{slam.last_n_kfs} live")
+    print(f"phase 6: sync cadence ran {len(slam.sync_reads)} times, host reads "
+          f"per sync {slam.sync_reads} (ring, packed query, verifications); "
+          f"{in_db} KFs in the database of {lc.vocab.n_words} words; "
+          f"{len(lc.loops)} loops closed, {len(lc.consistent_revisits)} "
+          f"consistent revisits; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]",
+          flush=True)
+
+    # (b) a loop to close, at full capacities
+    m, T_true, T_est, drift = looped_map(cfg, dev, seed=0, n_kfs=N_LOOP_KFS,
+                                         n_pts=N_LOOP_PTS)
+    n_feat = int(m.kf_kp_valid.sum(1).max())
+    lc = LoopClosing(cfg, dev)
+    chi2 = []
+    post_gba = lc._post_loop_gba
+
+    def measured_gba(mm):
+        chi2.append(float(global_ba.map_chi2(mm, cfg.camera, cfg.ba)))
+        out = post_gba(mm)
+        chi2.append(float(global_ba.map_chi2(out, cfg.camera, cfg.ba)))
+        return out
+
+    lc._post_loop_gba = measured_gba
+    K = m.kf_valid.shape[0]
+    arange = torch.arange(K, device=dev)
+    torch.cuda.synchronize()
+    read_host.count = 0
+    times = []
+    for lo in range(0, N_LOOP_KFS, 4):
+        ids = list(range(lo, lo + 4))
+        # the map as it stood when the window's last keyframe came in
+        m_k = m._replace(kf_valid=m.kf_valid & (arange < lo + 4))
+        t0 = time.perf_counter()
+        n_loops = len(lc.loops)
+        out = lc.process_keyframes_batch(m_k, ids, ids, n_live=lo + 4)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, len(lc.loops) > n_loops))
+        m = out._replace(kf_valid=m.kf_valid)
+    if not torch.isfinite(m.kf_T_cw).all() or not torch.isfinite(m.lm_pos).all():
+        raise AssertionError("loop closing: non-finite map")
+    if not lc.loops:
+        raise AssertionError("loop closing: no loop closed on the looped map")
+    q, c = lc.loops[0]
+    if not (q >= N_LOOP_KFS // 2 and c < N_LOOP_KFS // 2):
+        raise AssertionError(f"loop closing: loop {q} <-> {c} does not join "
+                             f"the return leg to the outbound leg")
+    T_after = m.kf_T_cw.cpu().numpy()
+    before = float(np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3]))
+    after = float(np.linalg.norm(T_after[q][:3, 3] - T_true[q][:3, 3]))
+    if not after < 0.8 * before:
+        raise AssertionError(f"loop closing: drift at KF {q} {before:.4f} -> "
+                             f"{after:.4f} m")
+    quiet = [t for t, closed in times[1:] if not closed]
+    closing = [t for t, closed in times if closed]
+    print(f"phase 6: looped map ({N_LOOP_KFS} KFs, up to {n_feat} features "
+          f"each, {int(m.lm_valid.sum())} landmarks; M = "
+          f"{m.kf_lm.shape[1]}, L = {m.lm_pos.shape[0]}, K = {K}): loops "
+          f"{lc.loops}, drift at KF {q} {before * 100:.2f} -> "
+          f"{after * 100:.2f} cm, map_chi2 around the post-loop GBA "
+          f"{chi2[0]:.4g} -> {chi2[1]:.4g}; {read_host.count} host reads in "
+          f"{len(times)} syncs; ms per sync without a correction "
+          f"{1e3 * sum(quiet) / max(len(quiet), 1):.1f}, with one "
+          f"{1e3 * sum(closing) / max(len(closing), 1):.1f} [{card}]",
+          flush=True)
+    return counts["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -405,9 +654,16 @@ def main():
     t0 = time.perf_counter()
     card = phase1_device_and_build()
     kernel = phase2_kernel_vs_plain(dev)
-    launches, _, _ = phase3_vo(dev, card)
-    launches += phase4_slam(dev, card)
+    from aslam_tpu_torch.profile_slam import bench_config2, bench_walk
+
+    launches, vo_frames = phase3_vo(dev, card)
+    walk = bench_walk(bench_config2().camera, N_SLAM)
+    launches += phase4_slam(dev, card, walk)
     print(f"chip_smoke: phases 1-4 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    launches += phase5_config3(dev, card, vo_frames, walk)
+    launches += phase6_loop_closing(dev, card, walk)
+    print(f"chip_smoke: phases 1-6 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
           flush=True)

@@ -113,3 +113,29 @@ def jtree(x):
     import jax.numpy as jnp
 
     return jax.tree.map(jnp.asarray, x)
+
+
+def ref_map(mt):
+    """The port's MapState -> the reference's (jax arrays, uint32 words)."""
+    import jax.numpy as jnp
+
+    from aslam_tpu.models import mapstate as jms
+
+    def conv(name):
+        a = n(getattr(mt, name))
+        return jnp.asarray(a.view(np.uint32) if name.endswith("desc") else a)
+
+    return jms.MapState(**{name: conv(name) for name in jms.MapState._fields})
+
+
+def looped(seed: int = 1234, **kw):
+    """The hand-built looped map of tests/test_loopclosing.py at
+    small_config, made by the port's `looped_map` -> (reference config,
+    port config, port map, reference map, T_true, T_est, drift)."""
+    from aslam_tpu.config import small_config
+    from aslam_tpu_torch.profile_slam import looped_map
+
+    cfg = small_config()
+    pcfg = port_config(cfg)
+    mt, T_true, T_est, drift = looped_map(pcfg, "cpu", seed=seed, **kw)
+    return cfg, pcfg, mt, ref_map(mt), T_true, T_est, drift

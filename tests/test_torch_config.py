@@ -15,10 +15,13 @@ CLASSES = ["CameraModel", "ExtractorConfig", "MatcherConfig", "RansacConfig",
            "ICPConfig", "BAConfig", "TrackingConfig", "MapConfig",
            "LoopConfig", "MeshConfig", "SystemConfig"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the config-2 SLAM slice: each must import without jax or aslam_tpu
+# the SLAM slices (config 2, then config 3 and loop closing): each must
+# import without jax or aslam_tpu
 SLAM_MODULES = [f"aslam_tpu_torch.{m}" for m in (
     "ops.index", "ops.lba", "ops.pose_graph", "models.mapstate",
-    "models.tracking", "models.localmapping", "models.device_slam")]
+    "models.tracking", "models.localmapping", "models.device_slam",
+    "ops.icp", "ops.bow", "ops.global_ba", "models.loopclosing",
+    "utils.synthetic_hard")]
 
 
 def _fields(cls):
@@ -65,6 +68,14 @@ def test_port_imports_neither_jax_nor_reference():
         f"missing = set({SLAM_MODULES!r}) - set(mods)\n"
         "assert not missing, missing\n"
         "import chip_smoke\n"
+        "import os\n"
+        "from aslam_tpu_torch.config import SystemConfig\n"
+        "from aslam_tpu_torch.models.loopclosing import _default_vocab_path\n"
+        "from aslam_tpu_torch.ops.bow import load_vocabulary\n"
+        "path = _default_vocab_path(SystemConfig())\n"
+        "pkg = os.path.dirname(os.path.abspath(aslam_tpu_torch.__file__))\n"
+        "assert path == os.path.join(pkg, 'assets', 'vocab_10_4.npz'), path\n"
+        "assert load_vocabulary(path).n_words == 10**4\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'aslam_tpu' not in sys.modules, 'aslam_tpu imported'\n"
         "print(len(mods))\n"
@@ -73,4 +84,4 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 27
+    assert int(proc.stdout.split()[-1]) >= 32

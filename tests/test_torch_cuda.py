@@ -194,3 +194,147 @@ def test_device_slam_on_card_matches_cpu_run():
     assert chunk[3] >= 1 and chunk[1] == stream[1]
     np.testing.assert_allclose(stream[0], chunk[0], atol=1e-3)
     np.testing.assert_allclose(cpu[0], chunk[0], atol=1e-2)
+
+
+def test_loop_closing_on_card_matches_cpu_walk():
+    """The looped map (small_config) through `LoopClosing.process_keyframe`
+    on the card and on the CPU: the same vocabulary (trained on the host from
+    the same sample), the same database words, the same loop, corrected
+    poses within 1 cm (the verification's RANSAC draws differ: a CUDA and a
+    CPU generator draw differently from one seed), drift at the closing
+    keyframe cut by 20%, and no device sync but the counted reads."""
+    from aslam_tpu_torch.config import small_config
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.loopclosing import LoopClosing
+    from aslam_tpu_torch.profile_slam import looped_map, sync_sites
+
+    dev = _card()
+    cfg = small_config()
+
+    def walk(where, count_syncs=False):
+        m, T_true, T_est, _ = looped_map(cfg, where, seed=1234)
+        lc = LoopClosing(cfg, where, train_after_kfs=4)
+        reads = read_host.count
+
+        def go():
+            nonlocal m
+            for k in range(20):
+                m = lc.process_keyframe(m, k, k)
+
+        if count_syncs:
+            sites = sync_sites(go)
+            n = sum(k for site, k in sites.items()
+                    if site.startswith("aslam_tpu_torch"))
+            # beside the counted reads: the trained vocabulary's upload (4
+            # level tensors and idf per training) and the loop transform's
+            uploads = 5 * 2 + len(lc.loops)
+            assert n <= read_host.count - reads + uploads, sites
+        else:
+            go()
+        return lc, m, T_true, T_est
+
+    walk(dev)                                                # warm-up
+    lc_c, m_c, T_true, T_est = walk(dev, count_syncs=True)
+    lc_h, m_h, _, _ = walk("cpu")
+    assert lc_c.loops == lc_h.loops and len(lc_c.loops) == 1
+    for a, b in zip(lc_c.vocab.level_cents, lc_h.vocab.level_cents):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(lc_c.db.kf_words.cpu(), lc_h.db.kf_words)
+    assert torch.equal(lc_c.db.kf_hist.cpu(), lc_h.db.kf_hist)
+    np.testing.assert_allclose(m_c.kf_T_cw.cpu().numpy(), m_h.kf_T_cw.numpy(),
+                               atol=1e-2)
+    q, _ = lc_c.loops[0]
+    before = np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3])
+    after = np.linalg.norm(m_c.kf_T_cw.cpu().numpy()[q][:3, 3] - T_true[q][:3, 3])
+    assert after < 0.8 * before
+
+
+def test_bow_transform_takes_the_first_minimum_on_card():
+    """`torch.argmin` on the card returns the first of equal minima, as on
+    the CPU: two equal children at every node of a random tree."""
+    from aslam_tpu_torch.ops import bow
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    levels = []
+    for lvl in range(3):
+        c = rng.integers(0, 2**32, (10**lvl, 10, 8), dtype=np.uint32)
+        c[:, 7] = c[:, 3]                      # children 3 and 7 tie everywhere
+        levels.append(torch.from_numpy(c.view(np.int32)))
+    desc = torch.from_numpy(rng.integers(0, 2**32, (4096, 8), dtype=np.uint32)
+                            .view(np.int32))
+    cpu = bow.transform(bow.Vocabulary(tuple(levels), torch.ones(1000)), desc)
+    card = bow.transform(bow.Vocabulary(tuple(x.to(dev) for x in levels),
+                                        torch.ones(1000, device=dev)),
+                         desc.to(dev))
+    assert torch.equal(card.cpu(), cpu)
+    digits = torch.stack([cpu // 100, cpu // 10 % 10, cpu % 10])
+    assert (digits == 3).any() and not (digits == 7).any()
+
+
+def test_ricp_and_gicp_slam_on_card_match_cpu():
+    """Config 3 at small shape on the card: `ricp_fused` equals `ricp_step`
+    on a frame pair with the escalation forced, reads nothing, and agrees
+    with the CPU's result to 5 mm; `DeviceSlam` with `use_gicp` and
+    `use_loop_closing` tracks the walk with ATE < 3 cm."""
+    import dataclasses
+
+    from aslam_tpu_torch.config import small_config
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.device_slam import DeviceSlam
+    from aslam_tpu_torch.models.extractor import init_grid_thresholds
+    from aslam_tpu_torch.models.frame import make_frame
+    from aslam_tpu_torch.models.odometry import ricp_fused, ricp_step
+    from aslam_tpu_torch.utils import synthetic, trajectory
+
+    dev = _card()
+    cfg = small_config().replace(use_gicp=True, use_loop_closing=True)
+    forced = cfg.replace(icp=dataclasses.replace(cfg.icp,
+                                                 escalate_min_inliers=10**6))
+    rng = np.random.default_rng(4)
+    pts = synthetic.random_scene(rng, 500)
+    poses = synthetic.camera_trajectory(10, step_t=0.05, step_r=0.02, rng=rng)
+    tex = synthetic.point_textures(500, seed=5)
+    imgs = np.stack([synthetic.render_intensity_image(cfg.camera, T, pts, tex)
+                     for T in poses])
+    depths = np.stack([synthetic.render_depth_image(cfg.camera, T, pts, splat=4)
+                       for T in poses])
+
+    def pair(where):
+        grid = init_grid_thresholds(cfg.extractor, where)
+        f1, grid = make_frame(torch.from_numpy(imgs[1]).to(where),
+                              torch.from_numpy(depths[1]).to(where), cfg, grid)
+        f2, _ = make_frame(torch.from_numpy(imgs[2]).to(where),
+                           torch.from_numpy(depths[2]).to(where), cfg, grid)
+        gen = torch.Generator(device=where).manual_seed(0)
+        draws = torch.randint(0, 100, (cfg.ransac.n_hypotheses,
+                                       cfg.ransac.sample_size),
+                              generator=torch.Generator().manual_seed(1))
+        reads = read_host.count
+        fused = ricp_fused(f1, f2, gen, forced, draws=draws.to(where))
+        assert read_host.count == reads
+        step = ricp_step(f1, f2, gen, forced, draws=draws.to(where))
+        assert read_host.count == reads + 2
+        np.testing.assert_allclose(fused.T_cw2.cpu().numpy(),
+                                   step.T_cw2.cpu().numpy(), atol=1e-5)
+        return fused.T_cw2.cpu().numpy()
+
+    T_card, T_cpu = pair(dev), pair("cpu")
+    np.testing.assert_allclose(T_card, T_cpu, atol=5e-3)
+    T12_true = poses[2] @ np.linalg.inv(poses[1])
+    assert np.linalg.norm((np.linalg.inv(T_card) @ T12_true)[:3, 3]) < 0.02
+
+    before = hamming_top2.launches
+    slam = DeviceSlam(cfg, dev, sync_every=4)
+    slam.loop_closing.train_after = 2       # the walk ends with 3 keyframes
+    slam.process_chunk(imgs[:5], depths[:5])
+    for i in range(5, 10):
+        slam.process(imgs[i], depths[i])
+    traj, _ = slam.finish()
+    assert hamming_top2.launches - before == 9
+    assert np.isfinite(traj).all() and len(slam.sync_reads) >= 2
+    assert slam.last_n_kfs >= 2 and slam.loop_closing.vocab is not None
+    assert int(slam.loop_closing.db.kf_in_db.sum()) == slam.last_n_kfs
+    ate = trajectory.ate_rmse(trajectory.camera_centers(traj),
+                              trajectory.camera_centers(poses))
+    assert ate < 0.03

@@ -265,3 +265,48 @@ def test_refresh_landmark_descriptors_ids_matches_reference(walk):
     ref = jms.refresh_landmark_descriptors_ids(P.tree_np(m), jnp.asarray(ids),
                                                jnp.asarray(valid))
     P.assert_maps_equal(out, P.tree_np(ref), atol=0)
+
+
+@pytest.mark.parametrize("chunk", [256, 4, 3])
+def test_covisibility_matches_reference(walk, chunk):
+    """The full [K,K] matrix, as one product and blocked (a chunk that does
+    and one that does not divide K): equal integers, and equal to a count
+    over the bindings in numpy."""
+    _, m, _, _ = walk
+    mt = P.port_map(m)
+    K = m.kf_valid.shape[0]
+    ref = np.asarray(jms.covisibility(P.jtree(m), chunk=256))
+    out = tms.covisibility(mt, chunk=chunk)
+    assert out.dtype == torch.int32 and out.shape == (K, K)
+    np.testing.assert_array_equal(P.n(out), ref)
+    assert ref.max() >= 15 and (np.diag(ref) == 0).all()
+    sets = [set(m.kf_lm[k][(m.kf_lm[k] >= 0) & m.kf_kp_valid[k]
+                           & m.lm_valid[np.maximum(m.kf_lm[k], 0)]])
+            if m.kf_valid[k] else set() for k in range(K)]
+    brute = np.array([[len(sets[i] & sets[j]) if i != j else 0
+                       for j in range(K)] for i in range(K)])
+    np.testing.assert_array_equal(ref, brute)
+    if chunk != 256:      # the reference's own blocked path
+        np.testing.assert_array_equal(
+            np.asarray(jms.covisibility(P.jtree(m), chunk=8)), ref)
+
+
+def test_rebuild_observer_index_matches_reference(walk):
+    """From kf_lm alone, on a map whose index was wiped: the reference's
+    rebuild on the same map, and every bound landmark found again (a
+    landmark bound twice in one keyframe keeps one entry, as there)."""
+    _, m, _, _ = walk
+    wiped = m._replace(lm_obs_kf=np.full_like(m.lm_obs_kf, -1),
+                       lm_obs_feat=np.zeros_like(m.lm_obs_feat),
+                       lm_obs_ptr=np.zeros_like(m.lm_obs_ptr))
+    ref = P.tree_np(jms.rebuild_observer_index(P.jtree(wiped)))
+    out = tms.rebuild_observer_index(P.port_map(wiped))
+    P.assert_maps_equal(out, ref, atol=0)
+    bound = (m.kf_lm >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    ids = np.unique(m.kf_lm[bound])
+    _, _, ok = tms.observer_entries(out, torch.from_numpy(ids),
+                                    torch.ones(len(ids), dtype=torch.bool))
+    counts = np.bincount(m.kf_lm[bound], minlength=ids.max() + 1)[ids]
+    n_ok = P.n(ok.sum(1))
+    assert (n_ok >= 1).all() and (n_ok <= counts).all()
+    assert (n_ok == counts).mean() > 0.8

@@ -198,3 +198,142 @@ def test_track_sequence_equals_streaming_track_frame():
     assert torch.equal(grid_s, grid)
     assert torch.equal(last.T_cw, prev.T_cw)
     assert seq.n_matches.shape == (3,) and (seq.n_matches >= 30).all()
+
+
+# ----------------------------------------------------------- ADAPTIVE_RICP
+
+def _icp_cfg(cfg, case):
+    """Force each side of the escalation predicate through the config:
+    `never` (default thresholds: clean frames stay with RANSAC), `warm`
+    (every frame escalates, started from RANSAC's transform), `identity`
+    (every frame escalates from the identity), `point_to_plane` (the other
+    refinement, warm)."""
+    icp = cfg.icp
+    if case != "never":
+        icp = dataclasses.replace(icp, escalate_min_inliers=10**6)
+    if case == "identity":
+        icp = dataclasses.replace(icp, restart_rmse=0.0)
+    if case == "point_to_plane":
+        icp = dataclasses.replace(icp, method="point_to_plane")
+    return cfg.replace(icp=icp, use_gicp=True)
+
+
+@pytest.fixture(scope="module")
+def ricp_pair():
+    cfg = small_config()
+    imgs, depths, poses = _frames_u8(3, 3, cfg.camera)
+    grid = jnp.full((3, 3), 20.0, jnp.float32)
+    jf1, g1 = jframe._make_frame_impl(jnp.asarray(imgs[1]), jnp.asarray(depths[1]),
+                                      grid, cfg, *imgs[1].shape)
+    jf2, _ = jframe._make_frame_impl(jnp.asarray(imgs[2]), jnp.asarray(depths[2]),
+                                     g1, cfg, *imgs[2].shape)
+    key = jax.random.PRNGKey(5)
+    m, pair_valid, res = jodo.ransac_step(jf1, jf2, key, cfg)
+    tgt = np.maximum(np.asarray(m.target_idx), 0)
+    p1, p2 = np.asarray(jf1.p3d), np.asarray(jf2.p3d)[tgt]
+    good = np.asarray(pair_valid) & (p1[:, 2] > 0) & (p2[:, 2] > 0)
+    draws = _ref_draws(good, key, cfg.ransac)
+    T12_true = poses[2] @ np.linalg.inv(poses[1])
+    return (cfg, jf1, jf2, key, draws, convert.frame_data(P.tree_np(jf1), "cpu"),
+            convert.frame_data(P.tree_np(jf2), "cpu"), T12_true)
+
+
+def _pose_delta(Ta, Tb):
+    dT = np.linalg.inv(np.asarray(Ta, np.float64)) @ np.asarray(Tb, np.float64)
+    return (np.linalg.norm(dT[:3, 3]),
+            np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1)))
+
+
+@pytest.mark.parametrize("case", ["never", "warm", "identity", "point_to_plane"])
+def test_ricp_matches_reference_on_both_sides_of_the_predicate(ricp_pair, case):
+    """`ricp_step` and `ricp_fused` against the reference's, fed its RANSAC
+    draws: counts and matches equal, T_cw2 within 1e-3 m / 1e-3 rad (the
+    refinement re-associates by pixel, so last-digit differences of the
+    start move single correspondences), and the port's fused policy equal
+    to its host-branch policy to 1e-5."""
+    from aslam_tpu_torch.device import read_host
+
+    cfg0, jf1, jf2, key, draws, tf1, tf2, T12_true = ricp_pair
+    cfg = _icp_cfg(cfg0, case)
+    pcfg = P.port_config(cfg)
+    ref_fused = jodo.ricp_fused(jf1, jf2, key, cfg)
+    ref_step = jodo.ricp_step(jf1, jf2, key, cfg)
+
+    esc0, conv0, reads = todo.ricp_step.escalated, todo.ricp_step.converged, \
+        read_host.count
+    out_step = todo.ricp_step(tf1, tf2, None, pcfg, draws=P.t(draws))
+    n_reads = read_host.count - reads
+    out_fused = todo.ricp_fused(tf1, tf2, None, pcfg, draws=P.t(draws))
+    assert read_host.count - reads == n_reads            # fused reads nothing
+
+    escalated = case != "never"
+    # what the reference's refinement says for this start
+    m_j, pv_j, res_j = jodo.ransac_step(jf1, jf2, key, cfg)
+    converged = escalated and bool(jodo._icp_refine_step(
+        jf1, jf2, pv_j, res_j.T12, cfg,
+        warm_from_ransac=case != "identity").converged)
+    assert converged == (case in ("warm", "point_to_plane"))
+    assert todo.ricp_step.escalated - esc0 == int(escalated)
+    assert todo.ricp_step.converged - conv0 == int(converged)
+    assert n_reads == (2 if escalated else 1)
+    np.testing.assert_allclose(P.n(out_fused.T_cw2), P.n(out_step.T_cw2),
+                               atol=1e-5)
+    for out, ref in ((out_step, ref_step), (out_fused, ref_fused)):
+        assert int(out.n_matches) == int(ref.n_matches) > 30
+        np.testing.assert_array_equal(P.n(out.match_idx),
+                                      np.asarray(ref.match_idx))
+        np.testing.assert_array_equal(P.n(out.inliers), np.asarray(ref.inliers))
+        assert int(out.n_inliers) == int(ref.n_inliers) >= 20
+        assert int(out.ba_inliers) == 0 and out.ba_inliers.dtype == torch.int32
+        dt, dr = _pose_delta(ref.T_cw2, P.n(out.T_cw2))
+        assert dt < 1e-3 and dr < 1e-3, (case, dt, dr)
+        np.testing.assert_allclose(P.n(out.T12) @ P.n(tf1.T_cw),
+                                   P.n(out.T_cw2), atol=1e-6)
+    # a converged refinement moved the pose, and not away from the truth; a
+    # cold start that finds too few correspondences on these sparse depth
+    # maps leaves the identity
+    moved = _pose_delta(P.n(out_fused.T12), np.asarray(res_j.T12))[0]
+    assert (moved > 1e-6) == escalated
+    if case == "identity":
+        np.testing.assert_array_equal(P.n(out_fused.T12), np.eye(4))
+    else:
+        assert _pose_delta(P.n(out_fused.T12), T12_true)[0] < 0.02
+
+
+def test_ricp_falls_back_to_identity_when_nothing_aligns():
+    """RANSAC has no valid pair (disjoint depth validity) and the ICP has no
+    source point: the policy escalates, does not converge, and the identity
+    start stays (as tests/test_icp.py::test_ricp_escalates_on_poor_ransac)."""
+    from aslam_tpu_torch.models.extractor import Features
+    from aslam_tpu_torch.models.frame import FrameData
+    from aslam_tpu_torch.utils import camera as tcam
+
+    pcfg = P.port_config(small_config()).replace(use_gicp=True)
+    cam = pcfg.camera
+    M = pcfg.extractor.max_keypoints
+    rng = np.random.default_rng(0)
+    v, u = np.mgrid[0:cam.height, 0:cam.width]
+    depth = (1.5 + 0.2 * np.sin(u / 40.0) + 0.15 * np.cos(v / 30.0)).astype(np.float32)
+    desc = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+
+    def mk_frame(kp_depth_valid):
+        xy = P.t(rng.uniform(20, 300, (M, 2)).astype(np.float32))
+        z = P.t(np.where(kp_depth_valid, rng.uniform(0.5, 3.0, M), 0.0)
+                .astype(np.float32))
+        feat = Features(xy=xy, response=torch.ones(M), angle=torch.zeros(M),
+                        octave=torch.zeros(M, dtype=torch.int32), desc=P.t(desc),
+                        valid=torch.ones(M, dtype=torch.bool))
+        return FrameData(feat=feat, xy_und=xy, p3d=tcam.unproject(cam, xy, z),
+                         ur=torch.full((M,), -1.0), depth=z, has_depth=z > 0,
+                         T_cw=torch.eye(4), depth_map=P.t(depth))
+
+    v1 = np.arange(M) < M // 2
+    f1, f2 = mk_frame(v1), mk_frame(~v1)
+    esc0, conv0 = todo.ricp_step.escalated, todo.ricp_step.converged
+    for policy in (todo.ricp_step, todo.ricp_fused):
+        res = policy(f1, f2, torch.Generator().manual_seed(0), pcfg)
+        T = P.n(res.T_cw2)
+        assert np.isfinite(T).all() and np.linalg.norm(T[:3, 3]) < 0.05
+        assert int(res.n_inliers) < pcfg.icp.escalate_min_inliers
+    assert todo.ricp_step.escalated - esc0 == 1
+    assert todo.ricp_step.converged - conv0 == 0
