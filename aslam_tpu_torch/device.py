@@ -37,3 +37,10 @@ def to_host(x: torch.Tensor) -> np.ndarray:
     tensor first."""
     read_host.count += 1
     return x.cpu().numpy()
+
+
+def as_device(x, device: torch.device | str) -> torch.Tensor:
+    """A numpy array or a tensor -> a tensor on `device`, dtype kept."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)

@@ -20,29 +20,38 @@ on a value the host either knows or reads:
 `torch.Generator` for the RANSAC draws, so a chunked run equals the
 frame-by-frame run as long as the sync cadence does nothing between frames
 (with loop closing, or without inline mapping, a chunk syncs at its end
-where the stream syncs inside it).  `save`, `resume` and `new_sequence`
-wait for the host engines.
+where the stream syncs inside it).
+
+`save` writes the whole session (state, trajectory buffers, culled
+registry, the generators' states, loop closing's vocabulary, database and
+gates) so that `resume`, in a fresh object, continues draw for draw as the
+uninterrupted run would; the file carries a fingerprint of the config's
+capacities and `resume` refuses one that does not match.  `new_sequence`
+anchors the first frame of another sequence in the same map.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from aslam_tpu_torch.config import SystemConfig
-from aslam_tpu_torch.device import read_host
+from aslam_tpu_torch.device import as_device, read_host, to_host
 from aslam_tpu_torch.models import frame as frame_mod
 from aslam_tpu_torch.models import mapstate as ms
-from aslam_tpu_torch.models.extractor import init_grid_thresholds
+from aslam_tpu_torch.models.extractor import Features, init_grid_thresholds
 from aslam_tpu_torch.models.localmapping import (empty_cull_info,
                                                  map_keyframe_body,
                                                  map_keyframe_fused)
 from aslam_tpu_torch.models.loopclosing import LoopClosing
-from aslam_tpu_torch.models.odometry import rba_step, ricp_fused
-from aslam_tpu_torch.models.tracking import carry_associations, track_local_map
-from aslam_tpu_torch.utils.se3 import T_inv, pose_distance
+from aslam_tpu_torch.models.tracking import (bootstrap_track, first_free_slot,
+                                             track_step)
+from aslam_tpu_torch.utils.se3 import T_inv
+from aslam_tpu_torch.utils.trajectory import rebuild_trajectory
 
 
 class SlamState(NamedTuple):
@@ -107,28 +116,15 @@ def slam_step_frame(state: SlamState, frame: frame_mod.FrameData,
     """`slam_step` from the frame on: for a FrameData made already (the
     parity tests pass the reference's)."""
     dev = frame.T_cw.device
-    # ADAPTIVE_RICP (config 3) or ADAPTIVE_RBA
-    odometry = ricp_fused if cfg.use_gicp else rba_step
-    odo = odometry(state.last_frame, frame, generator, cfg, draws=draws)
-    frame = frame_mod.with_pose(frame, odo.T_cw2)
-    assoc = carry_associations(state.last_assoc, odo.match_idx, odo.inliers)
-    # the motion prior anchors the map solve only when odometry was healthy
-    w_prior = torch.where(odo.n_inliers >= cfg.ransac.min_inliers,
-                          cfg.tracking.pose_prior_weight, 0.0)
-    lm_res = track_local_map(state.m, frame, assoc, cfg, prior_weight=w_prior)
-    frame = frame_mod.with_pose(frame, lm_res.T_cw)
-    assoc = lm_res.assoc
-    m = state.m._replace(
-        lm_visible=state.m.lm_visible + lm_res.visible_mask.to(torch.int32),
-        lm_found=state.m.lm_found + lm_res.found_mask.to(torch.int32),
-    )
-
-    dt, dr = pose_distance(state.last_kf_T, frame.T_cw)
+    m, T_cw, assoc, s7 = track_step(
+        state.m, state.last_frame, state.last_assoc, frame, state.last_kf_T,
+        generator, cfg, draws=draws)
+    frame = frame_mod.with_pose(frame, T_cw)
+    dt, dr = s7[3], s7[4]
     # capacity = any free slot (culling frees rows for reuse)
     need_kf = ((dt > cfg.tracking.kf_min_trans)
                | (dr > cfg.tracking.kf_min_rot)) & ~torch.all(m.kf_valid)
-    need, slot = read_host(need_kf,
-                           torch.argmin(m.kf_valid.to(torch.int32)))
+    need, slot = read_host(need_kf, first_free_slot(m))
 
     st = state
     if need:
@@ -157,11 +153,9 @@ def slam_step_frame(state: SlamState, frame: frame_mod.FrameData,
     n_kfs = torch.sum(m.kf_valid, dtype=torch.int32)
     st = st._replace(m=m, last_frame=frame, last_assoc=assoc,
                      grid_thresholds=new_grid, n_kfs=n_kfs)
-    stats = torch.stack([
-        lm_res.n_tracked.to(torch.float32), odo.n_matches.to(torch.float32),
-        odo.n_inliers.to(torch.float32), dt, dr, odo.rmse,
-        need_kf.to(torch.float32), n_kfs.to(torch.float32),
-        lm_res.n_overflow.to(torch.float32)])
+    stats = torch.cat([
+        s7[:6], torch.stack([need_kf.to(torch.float32),
+                             n_kfs.to(torch.float32)]), s7[6:]])
     T_cr = frame.T_cw @ T_inv(st.last_kf_T)
     return st, frame.T_cw, stats, st.kf_counter - 1, T_cr, cull
 
@@ -199,10 +193,40 @@ def _pack_ring(state: SlamState) -> torch.Tensor:
         state.n_kfs.reshape(1)])
 
 
-def _as_device(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+_HOST_FIELDS = ("kf_counter", "recent_n")       # Python ints in SlamState
+_NESTED = {"m": ms.MapState, "last_frame": frame_mod.FrameData,
+           "feat": Features}
+
+
+def _flatten(nt, prefix: str) -> dict[str, np.ndarray]:
+    """A NamedTuple of tensors, ints and NamedTuples -> {dotted field path:
+    numpy array}, one read per tensor.  Keyed by path, not by position, so
+    a field added later cannot shift what an older file holds."""
+    out = {}
+    for name, v in zip(nt._fields, nt):
+        key = f"{prefix}.{name}"
+        if name in _NESTED:
+            out.update(_flatten(v, key))
+        elif isinstance(v, torch.Tensor):
+            out[key] = to_host(v)
+        else:
+            out[key] = np.int64(v)
+    return out
+
+
+def _unflatten(cls, data, prefix: str, device):
+    fields = {}
+    for name in cls._fields:
+        key = f"{prefix}.{name}"
+        if name in _NESTED:
+            fields[name] = _unflatten(_NESTED[name], data, key, device)
+        elif key not in data:
+            raise KeyError(f"session file lacks {key}")
+        elif name in _HOST_FIELDS:
+            fields[name] = int(data[key])
+        else:
+            fields[name] = torch.from_numpy(data[key]).to(device)
+    return cls(**fields)
 
 
 class DeviceSlam:
@@ -239,7 +263,7 @@ class DeviceSlam:
                              if cfg.use_loop_closing else None)
 
     def process(self, img, depth, t: float = 0.0):
-        img, depth = _as_device(img, self.device), _as_device(depth, self.device)
+        img, depth = as_device(img, self.device), as_device(depth, self.device)
         if self.state is None:
             self._bootstrap(img, depth, t)
             return
@@ -272,7 +296,7 @@ class DeviceSlam:
         per chunk)."""
         n = len(imgs)
         ts = [0.0] * n if ts is None else list(ts)
-        imgs, depths = _as_device(imgs, self.device), _as_device(depths,
+        imgs, depths = as_device(imgs, self.device), as_device(depths,
                                                                  self.device)
         start = 0
         if self.state is None:
@@ -372,21 +396,163 @@ class DeviceSlam:
         surviving ancestor; a frame with none keeps its tracked pose.  Call
         after finish()."""
         m = self.state.m
-        kf_valid = m.kf_valid.cpu().numpy()
-        kf_ids = m.kf_id.cpu().numpy()
-        kf_T = m.kf_T_cw.cpu().numpy()
-        id2slot = {int(i): s for s, i in enumerate(kf_ids) if kf_valid[s]}
+        return rebuild_trajectory(
+            m.kf_valid.cpu().numpy(), m.kf_id.cpu().numpy(),
+            m.kf_T_cw.cpu().numpy(), self.culled_registry(), self.ref_ids,
+            torch.cat(self.rel_pose_buf).cpu().numpy(),
+            torch.cat(self.pose_buf).cpu().numpy())
+
+    # -- sessions --------------------------------------------------------
+    def fingerprint(self) -> dict:
+        """What a session file must agree on to be resumed: the capacities
+        that shape the state, and the switches that shape the run."""
+        cfg = self.cfg
+        return {
+            "max_keyframes": cfg.map.max_keyframes,
+            "max_landmarks": cfg.map.max_landmarks,
+            "max_obs_per_lm": cfg.map.max_obs_per_lm,
+            "max_keypoints": cfg.extractor.max_keypoints,
+            "image": [cfg.camera.height, cfg.camera.width],
+            "ring": self.ring,
+            "inline_mapping": self.inline_mapping,
+            "use_loop_closing": cfg.use_loop_closing,
+            "vocab": [cfg.loop.vocab_branching, cfg.loop.vocab_depth],
+            "generator": self.device.type,
+        }
+
+    def save(self, prefix: str) -> None:
+        """Checkpoint the whole session mid-run into `prefix`.session.npz
+        (and, with a vocabulary, `prefix`.vocab.npz and .loopdb.npz): enough
+        for `resume` in a fresh process to continue it and still export the
+        complete corrected trajectory.  Flushes the sync cadence first.
+        The culled registry is written in either mapping mode (the
+        reference drops it when mapping is not inline)."""
+        self._background_mapping()
         culled = self.culled_registry()
-        rels = torch.cat(self.rel_pose_buf).cpu().numpy()
-        frozen = torch.cat(self.pose_buf).cpu().numpy()
-        out = []
-        for i, r in enumerate(self.ref_ids):
-            T_acc = rels[i]
-            hops = 0
-            while r not in id2slot and r in culled and hops < len(culled) + 1:
-                parent, T_rp = culled[r]
-                T_acc = T_acc @ T_rp
-                r = parent
-                hops += 1
-            out.append(T_acc @ kf_T[id2slot[r]] if r in id2slot else frozen[i])
-        return np.stack(out)
+        traj, stats = (torch.cat(self.pose_buf), torch.cat(self.stats_buf)
+                       if self.stats_buf else
+                       torch.zeros(0, 9, device=self.device))
+        lc = self.loop_closing
+        lc_state = None if lc is None else {
+            "loops": lc.loops, "consistent_revisits": lc.consistent_revisits,
+            "last_loop_kf_id": lc.last_loop_kf_id,
+            "trained_on_kfs": lc.trained_on_kfs,
+            "consistent_groups": [[sorted(g), c]
+                                  for g, c in lc.consistent_groups]}
+        np.savez_compressed(
+            prefix + ".session.npz",
+            fingerprint=np.asarray(json.dumps(self.fingerprint())),
+            **_flatten(self.state, "state"),
+            poses=to_host(traj), stats=to_host(stats),
+            ref_ids=np.asarray(self.ref_ids, np.int64),
+            rels=to_host(torch.cat(self.rel_pose_buf)),
+            ts=np.asarray(self.timestamps, np.float64),
+            n_processed=np.int64(self.n_processed),
+            last_mapped_id=np.int64(self.last_mapped_id),
+            last_n_kfs=np.int64(self.last_n_kfs),
+            culled_ids=np.asarray(list(culled.keys()), np.int64),
+            culled_parents=np.asarray([v[0] for v in culled.values()],
+                                      np.int64),
+            culled_T=(np.stack([v[1] for v in culled.values()]) if culled
+                      else np.zeros((0, 4, 4), np.float32)),
+            generator=self.generator.get_state().numpy(),
+            loop_generator=(lc.generator.get_state().numpy() if lc
+                            else np.zeros(0, np.uint8)),
+            loop_state=np.asarray(json.dumps(lc_state)),
+        )
+        if lc is not None and lc.vocab is not None:
+            from aslam_tpu_torch.ops import bow
+
+            bow.save_vocabulary(prefix + ".vocab.npz", lc.vocab)
+            np.savez_compressed(
+                prefix + ".loopdb.npz",
+                **{f: to_host(getattr(lc.db, f)) for f in lc.db._fields})
+
+    @classmethod
+    def resume(cls, prefix: str, cfg: SystemConfig,
+               device: torch.device | str, **kwargs) -> "DeviceSlam":
+        """Rebuild a session from `save`'s output on `device`, in a fresh
+        object (a fresh process will do).  Raises ValueError when the file's
+        fingerprint differs from this configuration's."""
+        slam = cls(cfg, device, **kwargs)
+        data = np.load(prefix + ".session.npz")
+        saved, own = json.loads(str(data["fingerprint"])), slam.fingerprint()
+        if saved != own:
+            diff = {k: (saved.get(k), own[k]) for k in own
+                    if saved.get(k) != own[k]}
+            raise ValueError(f"session {prefix} does not fit this "
+                             f"configuration (file, here): {diff}")
+        dev = slam.device
+        slam.state = _unflatten(SlamState, data, "state", dev)
+        slam.pose_buf = [torch.from_numpy(data["poses"]).to(dev)]
+        if len(data["stats"]):
+            slam.stats_buf = [torch.from_numpy(data["stats"]).to(dev)]
+        slam.ref_ids = data["ref_ids"].tolist()
+        slam.rel_pose_buf = [torch.from_numpy(data["rels"]).to(dev)]
+        slam.timestamps = data["ts"].tolist()
+        slam.n_processed = int(data["n_processed"])
+        slam.last_mapped_id = int(data["last_mapped_id"])
+        slam.last_n_kfs = int(data["last_n_kfs"])
+        slam.generator.set_state(torch.from_numpy(data["generator"]))
+        # the culled registry comes back as one record, read already
+        ids = data["culled_ids"]
+        if len(ids):
+            slam._cull_pending = [ms.CullInfo(
+                culled=torch.ones(len(ids), dtype=torch.bool),
+                kf_id=torch.from_numpy(ids.astype(np.int32)),
+                parent_kf_id=torch.from_numpy(
+                    data["culled_parents"].astype(np.int32)),
+                T_cp=torch.from_numpy(data["culled_T"]))]
+        lc = slam.loop_closing
+        if lc is not None:
+            from aslam_tpu_torch.models.loopclosing import DatabaseState
+            from aslam_tpu_torch.ops import bow
+
+            st = json.loads(str(data["loop_state"]))
+            lc.loops = [tuple(x) for x in st["loops"]]
+            lc.consistent_revisits = [tuple(x)
+                                      for x in st["consistent_revisits"]]
+            lc.last_loop_kf_id = st["last_loop_kf_id"]
+            lc.trained_on_kfs = st["trained_on_kfs"]
+            lc.consistent_groups = [(set(g), c)
+                                    for g, c in st["consistent_groups"]]
+            lc.generator.set_state(torch.from_numpy(data["loop_generator"]))
+            if os.path.exists(prefix + ".vocab.npz"):
+                lc.vocab = bow.load_vocabulary(prefix + ".vocab.npz", dev)
+                db = np.load(prefix + ".loopdb.npz")
+                lc.db = DatabaseState(**{
+                    f: torch.from_numpy(db[f]).to(dev)
+                    for f in DatabaseState._fields})
+        return slam
+
+    def new_sequence(self, img, depth, t: float = 0.0) -> bool:
+        """Start a new input sequence into the same map: relocalize its
+        first frame against the map (loop closing's BoW database, when
+        there is one), else continue from the reference keyframe's pose;
+        then acquire landmark bindings by a wide projection search.  -> True
+        when the frame re-anchored on at least 10 bindings (one host read,
+        beside relocalization's)."""
+        self._background_mapping()   # flush before touching the map
+        st = self.state
+        frame, grid = frame_mod.make_frame(
+            as_device(img, self.device), as_device(depth, self.device),
+            self.cfg, st.grid_thresholds)
+        T0 = None
+        if self.loop_closing is not None:
+            T0 = self.loop_closing.relocalize(st.m, frame)
+        T0 = (st.last_kf_T if T0 is None
+              else torch.from_numpy(T0).to(self.device))
+        frame = frame_mod.with_pose(frame, T0)
+        T_b, assoc, n_b = bootstrap_track(st.m, frame, self.cfg)
+        ok = read_host(n_b)[0] >= 10
+        if ok:
+            frame = frame_mod.with_pose(frame, T_b)
+        self.state = st._replace(last_frame=frame, last_assoc=assoc,
+                                 grid_thresholds=grid)
+        self.pose_buf.append(frame.T_cw[None])
+        self.stats_buf.append(torch.zeros(1, 9, device=self.device))
+        self.ref_ids.append(st.kf_counter - 1)
+        self.rel_pose_buf.append((frame.T_cw @ T_inv(st.last_kf_T))[None])
+        self.timestamps.append(t)
+        self.n_processed += 1
+        return ok

@@ -1,7 +1,6 @@
 """Local mapping: the per-keyframe map refinement.
 
-Port of `aslam_tpu/models/localmapping.py` without the host `LocalMapping`
-class (it waits for the host engines).  Each inserted keyframe runs, in
+Port of `aslam_tpu/models/localmapping.py`.  Each inserted keyframe runs, in
 order: distinctive-descriptor refresh of the landmarks it touches, landmark
 culling, fuse (project covisible landmarks into it, bind or merge), the
 landmark position refresh, the windowed Schur local BA and keyframe
@@ -11,16 +10,21 @@ The reference keeps its branches on the device (`lax.cond`).  Here the host
 decides them: the cadence gates on `kf_id` need no read, and the local-BA
 gate (more than 2 live keyframes) and the alive guard of
 `map_keyframe_fused` each read one scalar through `device.read_host`.
+`LocalMapping` runs the same sequence for the host engine: it is told
+the live keyframe count, so its local-BA gate reads nothing, and it reads
+one packed record per keyframe-culling round (stopping at the first round
+that culls nothing).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from aslam_tpu_torch.config import SystemConfig
-from aslam_tpu_torch.device import read_host
+from aslam_tpu_torch.device import read_host, to_host
 from aslam_tpu_torch.models import mapstate as ms
 from aslam_tpu_torch.ops import lba, matching
 from aslam_tpu_torch.ops.index import (nonzero_static, pick, set_rows,
@@ -291,13 +295,12 @@ def empty_cull_info_single(device) -> ms.CullInfo:
     )
 
 
-def map_keyframe_body(m: ms.MapState, slot: int, kf_id: int,
-                      cfg: SystemConfig):
-    """The whole refinement of keyframe `slot` (id `kf_id`): descriptor
-    refresh -> landmark culling -> fuse -> position refresh -> windowed LBA
-    (> 2 live KFs) -> keyframe culling (`kf_cull_rounds` rounds of at most
-    one victim).  -> (map, CullInfo [3], `culled` False on no-op rounds)."""
-    dev = m.kf_valid.device
+def _refine_keyframe(m: ms.MapState, slot: int, kf_id: int, cfg: SystemConfig,
+                     n_live: int | None = None) -> ms.MapState:
+    """The refinement up to the keyframe culling: descriptor refresh,
+    landmark culling, fuse, position refresh, local BA.  The local BA needs
+    more than 2 live keyframes: `n_live` when the caller knows the count,
+    else one host read where the cadence lets the BA run."""
     row = m.kf_lm[slot]
     m = ms.refresh_landmark_descriptors_ids(
         m, torch.clamp(row, min=0), (row >= 0) & m.kf_kp_valid[slot])
@@ -313,7 +316,8 @@ def map_keyframe_body(m: ms.MapState, slot: int, kf_id: int,
             m = ms.refresh_landmark_positions(m, cfg)
     if cfg.map.enable_local_ba and (cfg.map.lba_every <= 1
                                     or kf_id % cfg.map.lba_every == 0):
-        (n_live,) = read_host(torch.sum(m.kf_valid.to(torch.int32)))
+        if n_live is None:
+            (n_live,) = read_host(torch.sum(m.kf_valid.to(torch.int32)))
         if n_live > 2:
             spec = build_window(m, slot, cfg)
             prob, lw_ids, _ = build_problem(m, spec, cfg)
@@ -322,6 +326,17 @@ def map_keyframe_body(m: ms.MapState, slot: int, kf_id: int,
             prob, _ = lba.local_ba(prob, cfg.camera, cfg.ba, chain=chain,
                                    group=m.kf_lm.shape[1])
             m = write_back(m, spec, prob, lw_ids)
+    return m
+
+
+def map_keyframe_body(m: ms.MapState, slot: int, kf_id: int,
+                      cfg: SystemConfig):
+    """The whole refinement of keyframe `slot` (id `kf_id`): descriptor
+    refresh -> landmark culling -> fuse -> position refresh -> windowed LBA
+    (> 2 live KFs) -> keyframe culling (`kf_cull_rounds` rounds of at most
+    one victim).  -> (map, CullInfo [3], `culled` False on no-op rounds)."""
+    dev = m.kf_valid.device
+    m = _refine_keyframe(m, slot, kf_id, cfg)
     rounds = max(cfg.map.kf_cull_rounds, 1)
     do_cull = cfg.map.kf_cull_every <= 1 or kf_id % cfg.map.kf_cull_every == 0
     infos = []
@@ -342,3 +357,39 @@ def map_keyframe_fused(m: ms.MapState, slot: int, kf_id: int,
     if not alive:
         return m, empty_cull_info(m.kf_valid.device)
     return map_keyframe_body(m, slot, kf_id, cfg)
+
+
+class LocalMapping:
+    """The per-keyframe refinement as the host engine runs it."""
+
+    def __init__(self, cfg: SystemConfig):
+        self.cfg = cfg
+        self.n_processed = 0
+        # culled-KF parent chain: kf_id -> (parent_kf_id, T_cp [4,4]).  The
+        # trajectory recovery walks it to a surviving ancestor when a
+        # frame's reference keyframe was culled.
+        self.culled: dict[int, tuple[int, np.ndarray]] = {}
+
+    def process_keyframe(self, m: ms.MapState, slot: int, kf_id: int,
+                         n_kfs: int) -> ms.MapState:
+        """Refine around keyframe `slot` (id `kf_id`); `n_kfs` is the live
+        keyframe count as of its insertion."""
+        cfg = self.cfg
+        m = _refine_keyframe(m, slot, kf_id, cfg, n_live=n_kfs)
+        # each culling call removes at most one victim, where the
+        # reference's pass can erase several: repeat until none remains,
+        # bounded per insertion
+        rounds = (max(cfg.map.kf_cull_rounds, 1)
+                  if kf_id % max(cfg.map.kf_cull_every, 1) == 0 else 0)
+        for _ in range(rounds):
+            m, cull = ms.keyframe_culling(m, slot, cfg)
+            rec = to_host(torch.cat([
+                torch.stack([cull.culled.to(torch.float32),
+                             cull.kf_id.to(torch.float32),
+                             cull.parent_kf_id.to(torch.float32)]),
+                cull.T_cp.reshape(-1)]))
+            if rec[0] < 0.5:
+                break
+            self.culled[int(rec[1])] = (int(rec[2]), rec[3:].reshape(4, 4))
+        self.n_processed += 1
+        return m

@@ -2,9 +2,10 @@
 (BoW-guided matching + 3D-3D RANSAC) and correction (pose-graph
 optimization, landmark re-anchoring, post-loop global BA).
 
-Port of `aslam_tpu/models/loopclosing.py`, without relocalization
-(`LoopClosing.relocalize`, `_reloc_verify`), which only `new_sequence`
-calls.  Database query semantics: candidates must share words with the
+Port of `aslam_tpu/models/loopclosing.py`, relocalization included (a lost
+frame, or the first frame of a new sequence, queries the same database and
+re-acquires its pose by BoW-guided matching + 3D-3D RANSAC against the best
+candidates).  Database query semantics: candidates must share words with the
 query, covisible neighbours and keyframes closer than `min_kf_gap` ids are
 excluded, scores below `min_score` are dropped, and covisibility-group score
 accumulation keeps candidates above 0.75x the best accumulated score.
@@ -17,7 +18,9 @@ counted in `device.read_host.count`:
     keyframe's candidates, scores, groups and of `kf_id`;
   * per keyframe whose candidates pass the consistency gate, one stacked
     read of the verification records;
-  * per vocabulary (re)training one read of the sampled descriptors.
+  * per vocabulary (re)training one read of the sampled descriptors;
+  * per relocalization one read of the scores, then one per candidate
+    tried.
 
 The RANSAC of the verification draws from a generator on the map's device;
 `verify_loop` and `verify_and_gate` take the raw draws optionally, as
@@ -338,6 +341,25 @@ def correct_map(m: ms.MapState, T_new: torch.Tensor) -> ms.MapState:
     return m._replace(kf_T_cw=T_new, lm_pos=lm_pos)
 
 
+def _reloc_verify(db: DatabaseState, m: ms.MapState, cand: int,
+                  frame, frame_words: torch.Tensor,
+                  generator: torch.Generator | None, cfg: SystemConfig,
+                  draws: torch.Tensor | None = None):
+    """BoW-guided match + 3D-3D RANSAC of a lost frame (FrameData) against
+    candidate keyframe `cand` -> (T_cw [4,4] for the frame, n_inliers, ok)."""
+    cam = cfg.camera
+    mm = bow_guided_match(
+        db.kf_words[cand], m.kf_desc[cand], m.kf_kp_valid[cand],
+        frame_words, frame.feat.desc, frame.feat.valid, cfg)
+    p_kf = camera.unproject(cam, m.kf_xy[cand], m.kf_z[cand])
+    tgt = torch.clamp(mm.target_idx, min=0).long()
+    pair_valid = mm.valid & (m.kf_z[cand] > 0) & frame.has_depth[tgt]
+    res = ransac.ransac_align(p_kf, frame.p3d[tgt], pair_valid, generator,
+                              cfg.ransac, cam, draws=draws)
+    # T12 maps kf-cam -> frame-cam: the frame's pose is T12 T_cw[kf]
+    return res.T12 @ m.kf_T_cw[cand], res.n_inliers, res.ok
+
+
 def _default_vocab_path(cfg: SystemConfig) -> str:
     """The shipped vocabulary artifact for the configured tree shape, in
     this package's own `assets/`."""
@@ -389,6 +411,8 @@ class LoopClosing:
         # RANSAC draws for the next verifications, in order (tests inject
         # the reference's); empty = draw from the generator
         self.verify_draws: list[torch.Tensor] = []
+        # keyframe slots that `relocalize` anchored a frame to, in order
+        self.relocalized: list[int] = []
 
     def _n_live(self, m: ms.MapState, n_live: int | None) -> int:
         if n_live is None:
@@ -585,12 +609,10 @@ class LoopClosing:
         pg = build_pose_graph(
             m, slot, cand_i, torch.from_numpy(T_qc.copy()).to(self.device),
             cfg, loop_inliers=n_inl)
-        if m.kf_valid.shape[0] > 256:
-            raise NotImplementedError(
-                "pose_graph.optimize_cg (the matrix-free pose-graph solver "
-                "for maps above 256 keyframes) is not ported yet: lower "
-                "cfg.map.max_keyframes to 256 or less")
-        pg = pose_graph.optimize(pg, iters=cfg.loop.pose_graph_iters)
+        # matrix-free PCG at map scale; the dense solve up to 256 keyframes
+        solve = (pose_graph.optimize_cg if m.kf_valid.shape[0] > 256
+                 else pose_graph.optimize)
+        pg = solve(pg, iters=cfg.loop.pose_graph_iters)
         m = correct_map(m, pg.T)
         if cfg.map.refresh_positions:
             # re-estimate landmark positions from all corrected KF poses
@@ -627,3 +649,28 @@ class LoopClosing:
             robust_iters=max(cfg.loop.post_gba_iters // 2, 1), method=method,
             chain=chain)
         return m
+
+    def relocalize(self, m: ms.MapState, frame, n_candidates: int = 3):
+        """Re-acquire the pose of a lost frame (FrameData) against the
+        keyframe database: the best `n_candidates` by L1 BoW score, down to
+        `loop.min_score`, each verified in turn.  -> T_cw [4,4] float32
+        ndarray, or None.  `verify_draws` feeds the RANSAC of each candidate
+        tried, as it does for loop verification."""
+        if self.vocab is None:
+            return None
+        words = bow.transform(self.vocab, frame.feat.desc)
+        vec = bow.bow_vector(self.vocab, words, frame.feat.valid)
+        scores = to_host(torch.where(self.db.kf_in_db & m.kf_valid,
+                                     bow.l1_scores(vec, self.db.kf_bow), -1.0))
+        for cand in np.argsort(-scores, kind="stable")[:n_candidates]:
+            if scores[cand] < self.cfg.loop.min_score:
+                break
+            T_cw, _, ok = _reloc_verify(
+                self.db, m, int(cand), frame, words, self.generator, self.cfg,
+                draws=self.verify_draws.pop(0) if self.verify_draws else None)
+            rec = to_host(torch.cat([T_cw.reshape(-1),
+                                     ok.to(T_cw.dtype).reshape(1)]))
+            if rec[16] > 0.5:
+                self.relocalized.append(int(cand))
+                return rec[:16].reshape(4, 4)
+        return None

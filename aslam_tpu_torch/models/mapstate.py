@@ -1,7 +1,6 @@
 """MapState: the world model as a tuple of fixed-capacity tensors.
 
-Port of `aslam_tpu/models/mapstate.py`, as far as the device SLAM engine
-reaches it.  Source of truth:
+Port of `aslam_tpu/models/mapstate.py`.  Source of truth:
 
   kf_* rows      one per keyframe slot (pose + keypoint arrays)
   kf_lm [K,M]    landmark id per keyframe feature (-1 = none): the
@@ -109,6 +108,70 @@ def _long(x: torch.Tensor) -> torch.Tensor:
 def _where_i(cond: torch.Tensor, a: torch.Tensor, b: int) -> torch.Tensor:
     """torch.where(cond, a, b) as an int64 index."""
     return torch.where(cond, _long(a), b)
+
+
+# ----------------------------------------------------------------- derived
+
+def _live_ids(m: MapState) -> torch.Tensor:
+    """[K*M] int64 landmark id of every live observation, L where none."""
+    L = m.lm_pos.shape[0]
+    ok = m.kf_kp_valid & m.kf_valid[:, None] & (m.kf_lm >= 0)
+    return _where_i(ok, m.kf_lm, L).reshape(-1)
+
+
+def observation_counts(m: MapState) -> torch.Tensor:
+    """[L] int32: number of observing keyframes per landmark."""
+    L = m.lm_pos.shape[0]
+    flat = _live_ids(m)
+    return torch.zeros(L + 1, dtype=torch.int32, device=flat.device) \
+        .index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))[:L]
+
+
+def observation_counts_weighted(m: MapState) -> torch.Tensor:
+    """[L] int32: observations with valid depth count twice (pseudo-stereo,
+    two constraints), monocular ones once."""
+    L = m.lm_pos.shape[0]
+    flat = _live_ids(m)
+    w = torch.where(m.kf_z > 0, 2, 1).to(torch.int32).reshape(-1)
+    return torch.zeros(L + 1, dtype=torch.int32, device=flat.device) \
+        .index_add_(0, flat, w)[:L]
+
+
+def landmark_mask_of_kfs(m: MapState, kf_mask: torch.Tensor) -> torch.Tensor:
+    """[L] bool: landmarks observed by any keyframe in `kf_mask` [K]: one
+    scatter over the [K,M] table."""
+    L = m.lm_pos.shape[0]
+    ok = m.kf_kp_valid & (m.kf_valid & kf_mask)[:, None] & (m.kf_lm >= 0)
+    flat = _where_i(ok, m.kf_lm, L).reshape(-1)
+    return set_rows(torch.zeros_like(m.lm_valid), flat, True) & m.lm_valid
+
+
+def kf_votes(m: MapState, lm_mask: torch.Tensor) -> torch.Tensor:
+    """[K] int32: per-keyframe count of observed landmarks inside `lm_mask`
+    [L]: one gather over the [K,M] table."""
+    L = m.lm_pos.shape[0]
+    pad = torch.cat([lm_mask & m.lm_valid, lm_mask.new_zeros(1)])
+    hit = pad[_where_i(m.kf_lm >= 0, m.kf_lm, L)] & m.kf_kp_valid \
+        & m.kf_valid[:, None]
+    return torch.sum(hit, dim=1, dtype=torch.int32)
+
+
+def covis_row(m: MapState, slot: int) -> torch.Tensor:
+    """[K] int32: shared-landmark counts of keyframe `slot` with every
+    keyframe, O(K*M) over the observation table (`covis_row_fast` walks the
+    observer index instead)."""
+    L = m.lm_pos.shape[0]
+    row = m.kf_lm[slot]
+    ok = m.kf_kp_valid[slot] & (row >= 0)
+    lmask = set_rows(torch.zeros_like(m.lm_valid), _where_i(ok, row, L),
+                     True) & m.lm_valid
+    votes = kf_votes(m, lmask) * m.kf_valid[slot]
+    return _set_row(votes, slot, 0)
+
+
+def covis_rows(m: MapState, slots) -> torch.Tensor:
+    """[S,K] int32 `covis_row` of each slot (a sequence of ints)."""
+    return torch.stack([covis_row(m, int(s)) for s in slots])
 
 
 # ------------------------------------------------------------ observer index
@@ -496,3 +559,34 @@ def refresh_landmark_descriptors_ids(m: MapState, lm_ids: torch.Tensor,
     w_ok = valid & m.lm_valid[safe]
     return m._replace(lm_desc=set_rows(m.lm_desc, _where_i(w_ok, lm_ids, L),
                                        new_desc))
+
+
+def refresh_landmark_descriptors(m: MapState, lm_mask: torch.Tensor,
+                                 max_obs: int = 8) -> MapState:
+    """The medoid refresh for a landmark mask [L] over the whole
+    observation table: up to `max_obs` observations per landmark, the first
+    in keyframe-slot order (a stable sort of the [K*M] edge list by landmark
+    id), then the least total Hamming distance."""
+    L = m.lm_pos.shape[0]
+    flat_ids = _live_ids(m)
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    idx = torch.arange(sorted_ids.shape[0], device=order.device)
+    rank = idx - torch.searchsorted(sorted_ids, sorted_ids, right=False)
+    use = (sorted_ids < L) & (rank < max_obs)
+    tgt = (torch.where(use, sorted_ids, L), torch.where(use, rank, 0))
+    dev = order.device
+    # masked edges all land in the padding row, which set_rows drops
+    obs_desc = set_rows(
+        torch.zeros(L, max_obs, 8, dtype=torch.int32, device=dev), tgt,
+        m.kf_desc.reshape(-1, 8)[order])
+    obs_cnt = set_rows(torch.zeros(L, max_obs, dtype=torch.bool, device=dev),
+                       tgt, use)
+    d = hamming.distance_matrix_popcount(obs_desc, obs_desc)
+    d = torch.where(obs_cnt[:, None, :], d, 0.0)
+    total = torch.where(obs_cnt, torch.sum(d, dim=2), float("inf"))
+    best = torch.argmin(total, dim=1)
+    med = torch.gather(obs_desc, 1, best[:, None, None].expand(-1, 1, 8))[:, 0]
+    new_desc = torch.where(torch.any(obs_cnt, dim=1)[:, None], med, m.lm_desc)
+    return m._replace(lm_desc=torch.where((lm_mask & m.lm_valid)[:, None],
+                                          new_desc, m.lm_desc))

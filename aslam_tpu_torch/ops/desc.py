@@ -29,6 +29,11 @@ def canonical(name: str) -> str:
     return n
 
 
+def is_binary(name: str) -> bool:
+    """True: packed 256-bit Hamming descriptors; False: float L2 ones."""
+    return canonical(name) != "SIFT"
+
+
 def describe(name: str, img_blurred: torch.Tensor, xy: torch.Tensor):
     """-> (desc [K,8] int32, angle [K] float32)."""
     n = canonical(name)

@@ -1,8 +1,8 @@
 """Correspondence search: 2-NN ratio matching, guided projection matching,
 duplicate resolution and candidate compaction.
 
-Port of `aslam_tpu/ops/matching.py` (`window_match` waits for loop
-closing).  The top-2 of `knn_ratio_match` goes through
+Port of `aslam_tpu/ops/matching.py` (`window_match`, which no module of
+the reference calls, is not ported yet).  The top-2 of `knn_ratio_match` goes through
 `ops/hamming_top2.py`: the CUDA kernel for tensors on the card, the plain
 version for CPU tensors.  `projection_match` needs the second index too and
 a per-pair window mask, so it stays the reference's distance matrix plus

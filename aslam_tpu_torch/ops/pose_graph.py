@@ -7,9 +7,10 @@ first-order Jacobians (`_edge_jacobians`, also used by the local BA's
 odometry-chain regularizer, `ops/lba.py::chain_terms`).  `optimize`
 assembles the damped normal equations with `index_add_` (duplicate indices
 accumulate) and solves them dense with `torch.linalg.solve_ex`, which does
-not read the device.  The matrix-free `optimize_cg` of the reference (maps
-above 256 keyframes) is not ported yet.  Every function broadcasts over
-leading batch dimensions, where the reference vmaps.
+not read the device; `optimize_cg` is the matrix-free Gauss-Newton with a
+block-Jacobi-preconditioned CG that loop closing takes above 256 keyframes.
+Every function broadcasts over leading batch dimensions, where the
+reference vmaps.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from aslam_tpu_torch.ops.linalg import chol_inv
 from aslam_tpu_torch.utils.se3 import T_inv, hat, se3_exp, se3_log
 
 
@@ -107,6 +109,67 @@ def optimize(pg: PoseGraph, iters: int = 20, lam: float = 1e-6) -> PoseGraph:
 
         dx = -torch.linalg.solve_ex(Hm, rhs)[0].reshape(K, 6)
         dx = torch.where(torch.isfinite(dx) & free[:, None], dx, 0.0)
+        T = se3_exp(dx) @ T
+    return pg._replace(T=T)
+
+
+def optimize_cg(pg: PoseGraph, iters: int = 15, cg_iters: int = 64,
+                lam: float = 1e-6) -> PoseGraph:
+    """Matrix-free Gauss-Newton, each step solved by `cg_iters` iterations
+    of block-Jacobi-preconditioned CG: only per-edge [6,6] blocks and [K,6]
+    vectors exist, never the [6K,6K] system.  The iteration counts are
+    fixed, so nothing is read from the device."""
+    K = pg.T.shape[0]
+    e_i, e_j = pg.e_i.to(torch.int64), pg.e_j.to(torch.int64)
+    w = _edge_weights(pg)
+    free = (pg.node_valid & ~pg.node_fixed)[:, None]             # [K,1]
+    z = dict(dtype=pg.T.dtype, device=pg.T.device)
+
+    def scatter(vi, vj):
+        return torch.zeros(K, *vi.shape[1:], **z) \
+            .index_add_(0, e_i, vi).index_add_(0, e_j, vj)
+
+    T = pg.T
+    for _ in range(iters):
+        T_i, T_j = T[e_i], T[e_j]
+        r = edge_residual(T_i, T_j, pg.e_meas)                   # [E,6]
+        Ji, Jj = _edge_jacobians(T_i, T_j, pg.e_meas)            # [E,6,6]
+        wJi = w[:, None, None] * Ji
+        wJj = w[:, None, None] * Jj
+        b = torch.where(free, scatter(torch.einsum("eri,er->ei", wJi, r),
+                                      torch.einsum("eri,er->ei", wJj, r)), 0.0)
+        # block diagonal of H, for the Jacobi preconditioner
+        D = scatter(torch.einsum("eri,erj->eij", wJi, Ji),
+                    torch.einsum("eri,erj->eij", wJj, Jj))
+        D_inv = chol_inv(D + (lam + 1e-8) * torch.eye(6, **z))
+
+        def Hv(v):
+            q = torch.einsum("eij,ej->ei", Ji, v[e_i]) \
+                + torch.einsum("eij,ej->ei", Jj, v[e_j])
+            out = scatter(torch.einsum("eri,er->ei", wJi, q),
+                          torch.einsum("eri,er->ei", wJj, q)) + lam * v
+            return torch.where(free, out, 0.0)
+
+        def precond(v):
+            return torch.where(free, torch.einsum("kij,kj->ki", D_inv, v), 0.0)
+
+        # PCG for H dx = -b
+        x = torch.zeros(K, 6, **z)
+        res = -b
+        p = zv = precond(res)
+        rz = torch.sum(res * zv)
+        for _ in range(cg_iters):
+            Hp = Hv(p)
+            denom = torch.sum(p * Hp)
+            alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
+            x = x + alpha * p
+            res = res - alpha * Hp
+            zv = precond(res)
+            rz_new = torch.sum(res * zv)
+            beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
+            p = zv + beta * p
+            rz = rz_new
+        dx = torch.where(torch.isfinite(x) & free, x, 0.0)
         T = se3_exp(dx) @ T
     return pg._replace(T=T)
 

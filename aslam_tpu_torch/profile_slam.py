@@ -1,9 +1,11 @@
 """Where a SLAM frame's time, and a loop-closing sync's, go on the card.
 
     python -m aslam_tpu_torch.profile_slam [--frames 40] [--config 2|3]
-        [--loop-closing] [--looped-map] [--out FILE.json]
+        [--engine device|host] [--loop-closing] [--looped-map]
+        [--out FILE.json]
 
-Runs the port's `DeviceSlam` (`process`, inline mapping) at full width with
+Runs the port's `DeviceSlam` (`process`, inline mapping; with `--engine
+host` the host engine, `SlamSystem.process`) at full width with
 the JAX bench's config-2 settings (`bench_config2`; `--config 3` puts the
 ADAPTIVE_RICP odometry in, `--loop-closing` turns loop closing on with the
 shipped vocabulary and a sync every 16 frames) over the bench's walk
@@ -177,14 +179,20 @@ def bench_walk(cam: CameraModel, n: int):
 # up at call time, so replacing it reaches every caller on the path
 def _stages():
     from aslam_tpu_torch.models import (device_slam, frame, localmapping,
-                                        loopclosing)
+                                        loopclosing, system, tracking)
     from aslam_tpu_torch.models import mapstate as ms
     from aslam_tpu_torch.ops import (ba, global_ba, icp, lba, matching,
                                      pose_graph, ransac)
 
     return [
         (device_slam, "slam_step_frame"), (frame, "_make_frame_impl"),
-        (device_slam, "rba_step"), (device_slam, "ricp_fused"),
+        (system.SlamSystem, "process_frame"),
+        (tracking.Tracking, "track_frame"), (tracking, "track_step"),
+        (tracking, "bootstrap_track"),
+        (localmapping.LocalMapping, "process_keyframe"),
+        (loopclosing.LoopClosing, "process_keyframe"),
+        (loopclosing.LoopClosing, "relocalize"),
+        (tracking, "rba_step"), (tracking, "ricp_fused"),
         (ransac, "ransac_align"), (icp, "gicp_refine"), (icp, "icp_refine"),
         (icp, "normal_map"),
         (device_slam.DeviceSlam, "_background_mapping"),
@@ -193,10 +201,10 @@ def _stages():
         (loopclosing, "verify_and_gate"), (loopclosing, "build_pose_graph"),
         (pose_graph, "optimize"), (loopclosing, "correct_map"),
         (global_ba, "global_ba"), (global_ba, "gn_cg_step"),
-        (device_slam, "track_local_map"),
+        (tracking, "track_local_map"),
         (matching, "projection_match"), (ba, "pose_only_ba"),
         (ms, "insert_keyframe"), (ms, "create_landmarks"),
-        (device_slam, "map_keyframe_body"),
+        (device_slam, "map_keyframe_body"), (localmapping, "_refine_keyframe"),
         (ms, "refresh_landmark_descriptors_ids"), (ms, "landmark_culling"),
         (localmapping, "fuse_landmarks"),
         (ms, "refresh_landmark_positions_ids"),
@@ -293,11 +301,15 @@ def _events_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def _run(cfg, dev, imgs, deps):
+def _run(cfg, dev, imgs, deps, engine="device"):
     from aslam_tpu_torch.models.device_slam import DeviceSlam
+    from aslam_tpu_torch.models.system import SlamSystem
 
-    slam = DeviceSlam(cfg, dev, seed=0,
-                      sync_every=16 if cfg.use_loop_closing else 10**9)
+    if engine == "host":
+        slam = SlamSystem(cfg, dev, seed=0)
+    else:
+        slam = DeviceSlam(cfg, dev, seed=0,
+                          sync_every=16 if cfg.use_loop_closing else 10**9)
     for i in range(len(imgs)):
         slam.process(imgs[i], deps[i])
     torch.cuda.synchronize()
@@ -362,6 +374,7 @@ def main():
                     help="frames under torch.profiler (its event processing "
                     "is slow at ~45k kernels a frame)")
     ap.add_argument("--config", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--engine", choices=("device", "host"), default="device")
     ap.add_argument("--loop-closing", action="store_true")
     ap.add_argument("--looped-map", action="store_true")
     ap.add_argument("--out", default="profile_slam.json")
@@ -380,13 +393,14 @@ def main():
     cfg = (bench_config3 if args.config == 3 else bench_config2)(
         args.loop_closing)
     imgs, deps, _ = bench_walk(cfg.camera, args.frames)
-    _run(cfg, dev, imgs[:12], deps[:12])                    # warm-up
+    _run(cfg, dev, imgs[:12], deps[:12], args.engine)       # warm-up
     out = {"card": card, "frames": args.frames, "config": args.config,
-           "loop_closing": args.loop_closing}
+           "loop_closing": args.loop_closing, "engine": args.engine}
 
     # 0. synchronising calls the engine makes
     reads = read_host.count
-    sites = sync_sites(lambda: _run(cfg, dev, imgs[:12], deps[:12]))
+    sites = sync_sites(lambda: _run(cfg, dev, imgs[:12], deps[:12],
+                                    args.engine))
     out["syncs_12_frames"] = {"total": sum(sites.values()),
                               "read_host": read_host.count - reads,
                               "sites": sites}
@@ -400,11 +414,11 @@ def main():
     reads = read_host.count
     with StageTimer() as timer:
         t0 = time.perf_counter()
-        slam = _run(cfg, dev, imgs, deps)
+        slam = _run(cfg, dev, imgs, deps, args.engine)
         wall = time.perf_counter() - t0
     n_tracked = args.frames - 1
     n_kf = int(sum(c for p, c in timer.calls.items()
-                   if p.endswith("map_keyframe_body")))
+                   if p.endswith("_refine_keyframe")))
     out["stages"] = _stage_dict(timer, n_tracked)
     out["timed_wall_s"] = wall
     out["host_reads"] = read_host.count - reads
@@ -421,7 +435,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _run(cfg, dev, imgs[:args.profiled_frames],
-             deps[:args.profiled_frames])
+             deps[:args.profiled_frames], args.engine)
         wall_p = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -469,8 +483,9 @@ def main():
         ms = _events_ms(lambda: fn(*a, **kw))
         out["ops"][name] = ms
         print(f"op: {name:44s} {ms:9.3f} ms (CUDA events) [{card}]")
-    out["n_kfs_live"] = int(slam.state.n_kfs)
-    out["lm_live"] = int(slam.state.m.lm_valid.sum())
+    m = slam.map if args.engine == "host" else slam.state.m
+    out["n_kfs_live"] = int(m.kf_valid.sum())
+    out["lm_live"] = int(m.lm_valid.sum())
     if args.looped_map:
         out["looped_map"] = profile_looped_map(dev, card)
     import os

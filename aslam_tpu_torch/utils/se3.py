@@ -170,6 +170,39 @@ def pose_distance(T_a: torch.Tensor, T_b: torch.Tensor):
     return torch.linalg.vector_norm(t, dim=-1), rotation_angle(R)
 
 
+def R_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x, y, z, w), the TUM trajectory order.
+    The branch with the largest of (trace, m00, m11, m22) is taken, per
+    element."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def s_of(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 2.0
+
+    s = s_of(tr + 1.0)
+    qw = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s,
+                      s / 4.0], -1)
+    s = s_of(1.0 + m00 - m11 - m22)
+    qx = torch.stack([s / 4.0, (m01 + m10) / s, (m02 + m20) / s,
+                      (m21 - m12) / s], -1)
+    s = s_of(1.0 + m11 - m00 - m22)
+    qy = torch.stack([(m01 + m10) / s, s / 4.0, (m12 + m21) / s,
+                      (m02 - m20) / s], -1)
+    s = s_of(1.0 + m22 - m00 - m11)
+    qz = torch.stack([(m02 + m20) / s, (m12 + m21) / s, s / 4.0,
+                      (m10 - m01) / s], -1)
+    use_w = tr > 0
+    use_x = (~use_w) & (m00 >= m11) & (m00 >= m22)
+    use_y = (~use_w) & (~use_x) & (m11 >= m22)
+    q = torch.where(use_w[..., None], qw,
+                    torch.where(use_x[..., None], qx,
+                                torch.where(use_y[..., None], qy, qz)))
+    return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+
+
 def quat_to_R(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (x, y, z, w) -> rotation matrix."""
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)

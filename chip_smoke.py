@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on a CUDA card: config-1 VO, config-2
-SLAM, config-3 (GICP escalation) VO and SLAM, and loop closing.
+SLAM, config-3 (GICP escalation) VO and SLAM, loop closing, and the host
+shell (the CLI from a TUM directory on disk, both engines, sessions).
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -51,7 +52,24 @@ Phases, one printed line each (or more, for phases 3 and 4):
      through `LoopClosing.process_keyframes_batch` in windows of four: a
      loop closed between the return leg and the outbound leg, the drift at
      the closing keyframe cut by >= 20%, `map_chi2` around the post-loop
-     global BA.
+     global BA;
+  7. the host shell at full width: (a) a TUM-layout directory (8-bit gray and
+     16-bit depth PNGs, `associations.txt`) fabricated from the walk's 64
+     frames in a temporary directory, read back through `TumSequence` (the
+     decoder in use is printed; the native one, where it built, and the zlib
+     one must both return the frames exactly); (b) the CLI in process over
+     it: `--mode vo`, `--mode slam+gicp --engine device --chunk 32` and
+     `--mode slam+gicp --engine host --checkpoint`: the output files, one
+     finite row per frame, one kernel launch per tracked frame, ATE under
+     the repo's gates and within 1.5x the JAX package's through the same
+     path; (c) `DeviceSlam` over 32 frames, `save`, `resume` in a fresh
+     object, 32 more: the uninterrupted run's poses to 1e-5 and its keyframe
+     ids; then `new_sequence` on a frame of the first half, which must
+     relocalize through the shipped vocabulary to within 2 cm / 0.02 rad of
+     the truth, bind >= 10 landmarks and track the next frame; (d) the CLI
+     with `--resume` from (b)'s checkpoint over the first 16 frames as a
+     second sequence: anchored by relocalization, every frame tracked above
+     `min_matches_tracked`, within 3 cm of the truth in the first map's frame.
 Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
@@ -59,8 +77,12 @@ refuses to run without a CUDA device, and it imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -117,6 +139,18 @@ JAX_SLAM3_ATE_M = (0.002102473097171833, 0.0022858326225181284)
 JAX_SLAM_LOOP_ATE_M = (0.0032870445811745406, 0.0035003549024261184)
 N_LOOP_KFS = 24
 N_LOOP_PTS = 2500
+
+#   ... port_reference_ate.py vo-walk | device | host   (55 s, 153 s, 140 s)
+#     the engines behind the CLI's three paths of phase 7 on the walk's 64
+#     frames as the TUM loader hands them over (float32 gray, float32
+#     metres), config 3 with loop closing: `VisualOdometry`; `DeviceSlam`
+#     (raw, rebuilt; 6 keyframes inserted, 7 live); `SlamSystem` (raw,
+#     rebuilt; 7 keyframes, none culled, no loop)
+JAX_CLI_ATE_M = {"vo": 0.00831013053630803,
+                 "device": (0.002102473097171833, 0.0022858326225181284),
+                 "host": (0.002102553912453388, 0.002304286046556286)}
+N_SECOND = 16           # frames of the second sequence
+RELOC_FRAME = 10        # the first-half frame that `new_sequence` re-enters on
 
 
 def phase1_device_and_build():
@@ -644,6 +678,312 @@ def phase6_loop_closing(dev, card, walk):
     return counts["launches"]
 
 
+def _cli(root, out, cfg, *flags):
+    """One run of the CLI in process, the launch count zeroed just before ->
+    (Metrics, engine, kernel launches, seconds, the loader's line)."""
+    from aslam_tpu_torch import main as cli
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+
+    torch.cuda.synchronize()
+    hamming_top2.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        metrics, engine = cli.run(
+            ["--dataset", root, "--camera", "bench", "--out-dir", out, *flags],
+            base_config=cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    loader = [ln for ln in printed.getvalue().splitlines()
+              if ln.startswith("TumSequence")]
+    return metrics, engine, hamming_top2.launches, seconds, loader[0]
+
+
+def _file_centers(mode, path, n):
+    """Camera centres [n,3] of a TUM trajectory file with one finite row per
+    frame and unit quaternions."""
+    from aslam_tpu_torch.utils import trajectory
+
+    ts, xyz, quat = trajectory.load_tum_trajectory(path)
+    if not (len(ts) == n and np.isfinite(xyz).all() and np.isfinite(quat).all()
+            and np.allclose(np.linalg.norm(quat, axis=1), 1.0, atol=1e-4)):
+        raise AssertionError(f"{mode}: {path} holds {len(ts)} rows for {n} "
+                             f"frames, or a row that is no pose")
+    return xyz
+
+
+def _cli_line(metrics, launches, seconds, n):
+    t = metrics.summary()["timers"]
+    return (f"{launches} kernel launches; load {t['load']['mean_ms']:.1f} ms, "
+            f"track {t['track']['total_s'] * 1e3 / n:.1f} ms per frame; "
+            f"{n / seconds:.2f} fps")
+
+
+def _mib(prefix, *suffixes):
+    return sum(os.path.getsize(prefix + s) for s in suffixes
+               if os.path.exists(prefix + s)) / 2**20
+
+
+def _pose_error(T, T_true):
+    """(metres between the camera centres, radians between the rotations)."""
+    d = np.asarray(T, np.float64) @ np.linalg.inv(np.asarray(T_true, np.float64))
+    return (float(np.linalg.norm(d[:3, 3])),
+            float(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1, 1))))
+
+
+def phase7_host_shell(dev, card, walk):
+    from aslam_tpu_torch import main as cli
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.device_slam import DeviceSlam
+    from aslam_tpu_torch.native import loader as native_loader
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.profile_slam import bench_config3
+    from aslam_tpu_torch.utils import dataset, trajectory
+
+    cfg = bench_config3(loop_closing=True)
+    cam = cfg.camera
+    cli.CAMERAS["bench"] = cam
+    imgs, deps, gt = walk
+    n = len(imgs)
+    ts = [0.033 * i for i in range(n)]
+    gt_c = trajectory.camera_centers(gt)
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="aslam_smoke_") as tmp:
+        # (a) the sequence on disk, and back
+        root = os.path.join(tmp, "walk")
+        t0 = time.perf_counter()
+        dataset.write_tum_sequence(root, imgs, deps, ts)
+        write_ms = 1e3 * (time.perf_counter() - t0) / n
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        seq = dataset.TumSequence(root, depth_factor=cam.depth_factor,
+                                  lookahead=0, verbose=False)
+        decoders = {seq.decoder: lambda i: seq[i][1:]}
+        if native_loader.available():
+            decoders["zlib"] = lambda i: (
+                dataset.decode_png_zlib(seq.assoc.rgb_paths[i]).astype(np.float32),
+                dataset.decode_png_zlib(seq.assoc.depth_paths[i])
+                .astype(np.float32) * cam.depth_factor)
+        decode_ms = {}
+        for name, decode in decoders.items():
+            t0 = time.perf_counter()
+            pairs = [decode(i) for i in range(0, n, 4)]
+            decode_ms[name] = 1e3 * (time.perf_counter() - t0) / len(pairs)
+            for i, (g, d) in zip(range(0, n, 4), pairs):
+                if not (np.array_equal(g, imgs[i].astype(np.float32))
+                        and np.array_equal(d, deps[i].astype(np.float32)
+                                           * np.float32(cam.depth_factor))):
+                    raise AssertionError(f"{name} decoder: frame {i} differs "
+                                         f"from what was written")
+        seq.close()
+        print(f"phase 7: TUM directory of {n} frame pairs, {size / 2**20:.1f} "
+              f"MiB, written at {write_ms:.1f} ms a pair; PNG decoder in use: "
+              f"{seq.decoder}; decode ms per frame pair "
+              + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+              + f" (one thread, {len(pairs)} pairs, equal to the frames "
+              f"written) [{card}]", flush=True)
+
+        # (b) the CLI over it: VO, the device engine, the host engine
+        out = os.path.join(tmp, "vo")
+        metrics, vo, k, seconds, loader = _cli(root, out, cfg, "--mode", "vo")
+        ate = trajectory.ate_rmse(
+            _file_centers("vo", out + "/CameraTrajectory.txt", n), gt_c)
+        ref = JAX_CLI_ATE_M["vo"]
+        if not (ate < 0.01 and ate <= 1.5 * ref and k == n - 1
+                and os.path.exists(out + "/metrics.json")):
+            raise AssertionError(f"main --mode vo: ATE {ate:.5f} m vs JAX "
+                                 f"{ref:.5f} m, {k} launches")
+        launches += k
+        print(f"phase 7: {loader} [{card}]", flush=True)
+        print(f"phase 7: main --mode vo: {n} frames, ATE {ate * 100:.3f} cm "
+              f"(JAX {ref * 100:.3f} cm); {metrics.counters['host_reads']} "
+              f"host reads; {_cli_line(metrics, k, seconds, n)} "
+              f"[{card}]", flush=True)
+
+        out = os.path.join(tmp, "device")
+        metrics, slam, k, seconds, _ = _cli(
+            root, out, cfg, "--mode", "slam+gicp", "--engine", "device",
+            "--chunk", str(n // 2))
+        ate = trajectory.ate_rmse(
+            _file_centers("device", out + "/CameraTrajectory.txt", n), gt_c)
+        ate_r = trajectory.ate_rmse(
+            trajectory.camera_centers(slam.rebuilt_trajectory()), gt_c)
+        ref = JAX_CLI_ATE_M["device"]
+        _gate_slam_ate("main --engine device", ate, ate_r, ref)
+        n_kfs = metrics.counters["keyframes"]
+        if not (k == n - 1 and n_kfs >= 4 and slam.kfs_mapped == slam.last_n_kfs
+                and len(metrics.timers["track"]) == 2):
+            raise AssertionError(f"main --engine device: {k} launches, "
+                                 f"{n_kfs} keyframes")
+        launches += k
+        reads = metrics.counters["host_reads"]
+        print(f"phase 7: main --mode slam+gicp --engine device --chunk "
+              f"{n // 2}: {n} frames, ATE {ate * 100:.3f} cm, rebuilt "
+              f"{ate_r * 100:.3f} cm (JAX {ref[0] * 100:.3f} / "
+              f"{ref[1] * 100:.3f} cm); {n_kfs} keyframes; {reads} host reads "
+              f"({reads / (n - 1):.2f} per tracked frame, the export's "
+              f"included); {_cli_line(metrics, k, seconds, n)} "
+              f"[{card}]", flush=True)
+
+        out = os.path.join(tmp, "host")
+        ckpt = os.path.join(tmp, "map")
+        metrics, sys1, k, seconds, _ = _cli(
+            root, out, cfg, "--mode", "slam+gicp", "--engine", "host",
+            "--checkpoint", ckpt)
+        for name in ("CameraTrajectory.txt", "KeyFrameTrajectory.txt",
+                     "Histogram.csv", "metrics.json"):
+            if not os.path.exists(os.path.join(out, name)):
+                raise AssertionError(f"main --engine host wrote no {name}")
+        for suffix in (".npz", ".meta.json", ".vocab.npz", ".loopdb.npz"):
+            if not os.path.exists(ckpt + suffix):
+                raise AssertionError(f"--checkpoint wrote no {ckpt + suffix}")
+        tr = sys1.tracking
+        ate = trajectory.ate_rmse(trajectory.camera_centers(tr.poses), gt_c)
+        ate_r = trajectory.ate_rmse(
+            _file_centers("host", out + "/CameraTrajectory.txt", n), gt_c)
+        ref = JAX_CLI_ATE_M["host"]
+        _gate_slam_ate("main --engine host", ate, ate_r, ref)
+        n_kfs = metrics.counters["keyframes"]
+        kf_rows = np.loadtxt(out + "/KeyFrameTrajectory.txt").reshape(-1, 8)
+        min_tracked = min(s["n_tracked"] for s in tr.stats)
+        if not (k == n - 1 and n_kfs >= 4 and len(kf_rows) == tr.n_kfs
+                and min_tracked >= cfg.tracking.min_matches_tracked
+                and tr.state == "OK"):
+            raise AssertionError(
+                f"main --engine host: {k} launches, {n_kfs} keyframes, "
+                f"{len(kf_rows)} rows for {tr.n_kfs} live, min tracked "
+                f"{min_tracked}, state {tr.state}")
+        launches += k
+        reads = metrics.counters["host_reads_tracking"]
+        ck_mib = _mib(ckpt, ".npz", ".vocab.npz", ".loopdb.npz")
+        print(f"phase 7: main --mode slam+gicp --engine host --checkpoint: "
+              f"{n} frames, ATE {ate * 100:.3f} cm, rebuilt (the file) "
+              f"{ate_r * 100:.3f} cm (JAX {ref[0] * 100:.3f} / "
+              f"{ref[1] * 100:.3f} cm); {n_kfs} keyframes, {tr.n_kfs} live, "
+              f"{len(sys1.local_mapping.culled)} culled; {reads} host reads in "
+              f"the frame loop: 1 per tracked frame and "
+              f"{(reads - (n - 1)) / n_kfs:.2f} per keyframe; min tracked "
+              f"{min_tracked}; checkpoint {ck_mib:.1f} MiB; "
+              f"{_cli_line(metrics, k, seconds, n)} [{card}]",
+              flush=True)
+
+        # (c) the device engine's session: save, resume, new sequence
+        half = n // 2
+        whole = _slam_run("uninterrupted", cfg, dev, imgs, deps, chunk=half,
+                          sync_every=16)
+        launches += whole[3]["launches"]
+        hamming_top2.launches = 0
+        first = DeviceSlam(cfg, dev, seed=0, sync_every=16)
+        first.process_chunk(imgs[:half], deps[:half], ts=ts[:half])
+        torch.cuda.synchronize()
+        prefix = os.path.join(tmp, "session")
+        t0 = time.perf_counter()
+        first.save(prefix)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        del first
+        t0 = time.perf_counter()
+        second = DeviceSlam.resume(prefix, cfg, dev, sync_every=16)
+        torch.cuda.synchronize()
+        resume_ms = 1e3 * (time.perf_counter() - t0)
+        second.process_chunk(imgs[half:], deps[half:], ts=ts[half:])
+        traj_r, stats_r = second.finish()
+        d = float(np.abs(traj_r - whole[1]).max())
+        d_rb = float(np.abs(second.rebuilt_trajectory()
+                            - whole[0].rebuilt_trajectory()).max())
+        same_kfs = (torch.equal(second.state.m.kf_id, whole[0].state.m.kf_id)
+                    and torch.equal(second.state.m.kf_valid,
+                                    whole[0].state.m.kf_valid))
+        if not (d <= 1e-5 and d_rb <= 1e-5 and same_kfs
+                and hamming_top2.launches == n - 1
+                and second.timestamps == whole[0].timestamps):
+            raise AssertionError(
+                f"resume: max |dT| {d} ({d_rb} rebuilt) against the "
+                f"uninterrupted run, same keyframes: {same_kfs}, "
+                f"{hamming_top2.launches} launches")
+        launches += hamming_top2.launches
+        mib = _mib(prefix, ".session.npz", ".vocab.npz", ".loopdb.npz")
+        print(f"phase 7: DeviceSlam {half} frames, save ({save_ms:.0f} ms, "
+              f"{mib:.1f} MiB), resume in a fresh object ({resume_ms:.0f} ms), "
+              f"{n - half} more == the uninterrupted {n}: max |dT| {d:.2e}, "
+              f"rebuilt {d_rb:.2e} (tolerance 1e-5), the same "
+              f"{int(second.state.n_kfs)} keyframe ids; "
+              f"{hamming_top2.launches} kernel launches [{card}]", flush=True)
+
+        lc = second.loop_closing
+        hamming_top2.launches = 0
+        reads0 = read_host.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = second.new_sequence(imgs[RELOC_FRAME], deps[RELOC_FRAME], t=100.0)
+        torch.cuda.synchronize()
+        reloc_ms = 1e3 * (time.perf_counter() - t0)
+        reloc_reads = read_host.count - reads0
+        n_bound = int((second.state.last_assoc >= 0).sum())
+        e_t, e_r = _pose_error(second.state.last_frame.T_cw.cpu().numpy(),
+                               gt[RELOC_FRAME])
+        second.process(imgs[RELOC_FRAME + 1], deps[RELOC_FRAME + 1], t=100.033)
+        traj_n, stats_n = second.finish()
+        e_next = _pose_error(traj_n[-1], gt[RELOC_FRAME + 1])
+        if not (ok and len(lc.relocalized) == 1 and n_bound >= 10
+                and e_t < 0.02 and e_r < 0.02 and traj_n.shape[0] == n + 2
+                and stats_n[-1, 0] >= cfg.tracking.min_matches_tracked
+                and e_next[0] < 0.02 and e_next[1] < 0.02
+                and hamming_top2.launches == 1):
+            raise AssertionError(
+                f"new_sequence: anchored {ok}, relocalized {lc.relocalized}, "
+                f"{n_bound} bindings, pose error {e_t:.4f} m / {e_r:.4f} rad, "
+                f"next frame {e_next}, tracked {stats_n[-1, 0]}")
+        launches += hamming_top2.launches
+        print(f"phase 7: DeviceSlam.new_sequence on frame {RELOC_FRAME}: "
+              f"relocalized against keyframe slot {lc.relocalized[0]} "
+              f"(shipped vocabulary, {int(lc.db.kf_in_db.sum())} keyframes in "
+              f"the database), {n_bound} bindings from bootstrap_track, pose "
+              f"{e_t * 100:.2f} cm / {e_r:.4f} rad from the truth (gate 2 cm "
+              f"/ 0.02 rad), {reloc_ms:.0f} ms, {reloc_reads} host reads; the "
+              f"next frame tracked {int(stats_n[-1, 0])} landmarks at "
+              f"{e_next[0] * 100:.2f} cm / {e_next[1]:.4f} rad [{card}]",
+              flush=True)
+        del whole, second
+
+        # (d) the host engine resumed from the checkpoint, a second sequence
+        out = os.path.join(tmp, "second")
+        metrics, sys2, k, seconds, _ = _cli(
+            root, out, cfg, "--mode", "slam+gicp", "--engine", "host",
+            "--resume", ckpt, "--max-frames", str(N_SECOND))
+        xyz = _file_centers("resumed", out + "/CameraTrajectory.txt", N_SECOND)
+        ate = trajectory.ate_rmse(xyz, gt_c[:N_SECOND])
+        off = float(np.linalg.norm(xyz - gt_c[:N_SECOND], axis=1).max())
+        tr = sys2.tracking
+        tracked = [s["n_tracked"] for s in tr.stats[1:]]
+        faults = [s for s in tr.stats[1:]
+                  if s.get("motion_model") or s.get("reacquired")
+                  or s.get("relocalized")]
+        if not (tr.stats[0] == {"new_sequence": True}
+                and len(sys2.loop_closing.relocalized) == 1
+                and min(tracked) >= cfg.tracking.min_matches_tracked
+                and not faults and tr.state == "OK" and k == N_SECOND - 1
+                and ate < 0.03 and off < 0.03
+                and tr.kf_counter >= sys1.tracking.kf_counter):
+            raise AssertionError(
+                f"main --resume: first frame {tr.stats[0]}, relocalized "
+                f"{sys2.loop_closing.relocalized}, tracked {tracked}, faults "
+                f"{faults}, state {tr.state}, {k} launches, ATE {ate:.4f} m, "
+                f"farthest {off:.4f} m")
+        launches += k
+        print(f"phase 7: main --engine host --resume, the first {N_SECOND} "
+              f"frames as a second sequence: NEW_SEQUENCE anchored by "
+              f"relocalization against keyframe slot "
+              f"{sys2.loop_closing.relocalized[0]}, min tracked "
+              f"{min(tracked)} (limit {cfg.tracking.min_matches_tracked}), no "
+              f"frame lost; ATE {ate * 100:.3f} cm, farthest {off * 100:.2f} "
+              f"cm from the truth in the first map's frame; "
+              f"{tr.kf_counter - sys1.tracking.kf_counter} keyframes added to "
+              f"{sys1.tracking.kf_counter}; "
+              f"{_cli_line(metrics, k, seconds, N_SECOND)} [{card}]",
+              flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -664,6 +1004,9 @@ def main():
     launches += phase5_config3(dev, card, vo_frames, walk)
     launches += phase6_loop_closing(dev, card, walk)
     print(f"chip_smoke: phases 1-6 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    launches += phase7_host_shell(dev, card, walk)
+    print(f"chip_smoke: phases 1-7 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
           flush=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """ATE of the JAX package on the frames `chip_smoke.py` drives the PyTorch
-port over: the constants its phases 5 and 6 hold the port to.
+port over: the constants its phases 5 to 7 hold the port to.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_reference_ate.py MODE
 
@@ -14,9 +14,18 @@ MODE is one of
               64 frames of the bench walk, `process` per frame
               -> JAX_SLAM3_ATE_M (raw, rebuilt);
   slam-loop   `DeviceSlam` with the bench's config 2 in full (loop closing,
-              shipped vocabulary), sync_every=32 -> JAX_SLAM_LOOP_ATE_M.
-All at full width (640x480, 1024 keypoints), frames as uint8 / uint16, seed
-0.  Each mode takes a few minutes on a CPU.
+              shipped vocabulary), sync_every=32 -> JAX_SLAM_LOOP_ATE_M;
+  vo-walk     `VisualOdometry` (the CLI's --mode vo) over the 64 frames of
+              the bench walk -> JAX_CLI_ATE_M["vo"];
+  device      `DeviceSlam` with config 3 and loop closing (the CLI's
+              --mode slam+gicp --engine device) over the walk, sync_every=8,
+              `process` per frame -> JAX_CLI_ATE_M["device"] (raw, rebuilt);
+  host        `SlamSystem` (the CLI's --mode slam+gicp --engine host) with
+              the same settings over the walk -> JAX_CLI_ATE_M["host"]
+              (raw, rebuilt).
+The first three take the frames as uint8 / uint16, the last three as the TUM
+loader hands them over (float32 gray, float32 metres).  All at full width
+(640x480, 1024 keypoints), seed 0.  Each mode takes a few minutes on a CPU.
 """
 
 import dataclasses
@@ -72,20 +81,19 @@ def ricp():
               flush=True)
 
 
-def slam(mode):
-    from aslam_tpu.models.device_slam import DeviceSlam
-
-    loop = mode == "slam-loop"
-    cfg = SystemConfig(camera=CAM, use_loop_closing=loop,
-                       use_gicp=mode == "slam-gicp")
-    cfg = cfg.replace(
+def bench_config(loop, gicp):
+    cfg = SystemConfig(camera=CAM, use_loop_closing=loop, use_gicp=gicp)
+    return cfg.replace(
         ba=BAConfig(max_window_cams=32, max_fixed_cams=32,
                     max_window_points=2048, max_edges=8192,
                     local_iters_1=3, local_iters_2=5),
         map=dataclasses.replace(cfg.map, lm_cull_every=2, kf_cull_every=2,
                                 lba_every=2, kf_cull_rounds=1),
         loop=dataclasses.replace(cfg.loop, use_pretrained_vocab=loop))
-    n = 64
+
+
+def bench_walk(n=64):
+    """-> (uint8 gray, uint16 depth counts, true poses)."""
     rng = np.random.default_rng(11)
     pts = synthetic.random_scene(rng, 2000)
     poses = synthetic.camera_trajectory(n, step_t=0.03, step_r=0.012, rng=rng)
@@ -94,9 +102,26 @@ def slam(mode):
                      for T in poses]).astype(np.float32)
     deps = np.stack([synthetic.render_depth_image(CAM, T, pts, splat=4)
                      for T in poses]).astype(np.float32)
-    imgs, deps = sensor(imgs, deps)
-    dev = DeviceSlam(cfg, seed=0, sync_every=32 if loop else 129)
-    for i in range(n):
+    return (*sensor(imgs, deps), poses)
+
+
+def loaded(imgs, deps):
+    """Sensor frames as `TumSequence` returns them."""
+    return (imgs.astype(np.float32),
+            deps.astype(np.float32) * np.float32(CAM.depth_factor))
+
+
+def slam(mode):
+    from aslam_tpu.models.device_slam import DeviceSlam
+
+    loop = mode in ("slam-loop", "device")
+    cfg = bench_config(loop, mode in ("slam-gicp", "device"))
+    imgs, deps, poses = bench_walk()
+    if mode == "device":
+        imgs, deps = loaded(imgs, deps)
+    sync = {"slam-loop": 32, "device": 8}.get(mode, 129)
+    dev = DeviceSlam(cfg, seed=0, sync_every=sync)
+    for i in range(len(imgs)):
         dev.process(imgs[i], deps[i])
     traj, stats = dev.finish()
     lc = dev.loop_closing
@@ -108,8 +133,38 @@ def slam(mode):
                            int(np.asarray(lc.db.kf_in_db).sum())), flush=True)
 
 
+def vo_walk():
+    from aslam_tpu.models.vo import VisualOdometry
+
+    imgs, deps, poses = bench_walk()
+    imgs, deps = loaded(imgs, deps)
+    vo = VisualOdometry(SystemConfig(camera=CAM))
+    for i in range(len(imgs)):
+        vo.process(imgs[i], deps[i])
+    print("vo-walk", repr(trajectory.ate_rmse(centers(vo.poses),
+                                              centers(poses))), flush=True)
+
+
+def host():
+    from aslam_tpu.models.system import SlamSystem
+
+    imgs, deps, poses = bench_walk()
+    imgs, deps = loaded(imgs, deps)
+    slam_sys = SlamSystem(bench_config(True, True))
+    for i in range(len(imgs)):
+        slam_sys.process(imgs[i], deps[i], t=0.033 * i)
+    tr = slam_sys.tracking
+    print("host", repr(trajectory.ate_rmse(centers(tr.poses), centers(poses))),
+          repr(trajectory.ate_rmse(centers(slam_sys.rebuilt_trajectory()),
+                                   centers(poses))),
+          "kfs", tr.kf_counter, "live", tr.n_kfs,
+          "culled", len(slam_sys.local_mapping.culled),
+          "loops", slam_sys.loop_closing.loops, flush=True)
+
+
 if __name__ == "__main__":
     t0 = time.time()
     mode = sys.argv[1]
-    ricp() if mode == "ricp" else slam(mode)
+    {"ricp": ricp, "vo-walk": vo_walk, "host": host}.get(
+        mode, lambda: slam(mode))()
     print(f"{time.time() - t0:.0f} s")

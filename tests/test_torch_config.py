@@ -21,7 +21,10 @@ SLAM_MODULES = [f"aslam_tpu_torch.{m}" for m in (
     "ops.index", "ops.lba", "ops.pose_graph", "models.mapstate",
     "models.tracking", "models.localmapping", "models.device_slam",
     "ops.icp", "ops.bow", "ops.global_ba", "models.loopclosing",
-    "utils.synthetic_hard")]
+    "utils.synthetic_hard",
+    # the host shell: CLI, host engine, checkpoints, loader
+    "main", "models.system", "utils.checkpoint", "utils.dataset",
+    "utils.metrics", "utils.pointcloud", "native.loader", "native.build")]
 
 
 def _fields(cls):

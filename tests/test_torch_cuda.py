@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-config-2 SLAM engine on the card against itself on the CPU.
+SLAM engines and the CLI on the card against themselves on the CPU.
 
 Imports torch and the port only (no jax), so that it runs where the card is:
 
@@ -338,3 +338,55 @@ def test_ricp_and_gicp_slam_on_card_match_cpu():
     ate = trajectory.ate_rmse(trajectory.camera_centers(traj),
                               trajectory.camera_centers(poses))
     assert ate < 0.03
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "vo"],
+    ["--mode", "slam+gicp", "--engine", "device", "--chunk", "4"],
+    ["--mode", "slam+loop", "--engine", "host"],
+], ids=["vo", "device", "host"])
+def test_cli_on_card_matches_cli_on_cpu(tmp_path, flags):
+    """`python -m aslam_tpu_torch.main` at small shape over a fabricated TUM
+    directory: on the card by default, one kernel launch per tracked frame,
+    the reference's output files, and camera centres within 1 cm of the same
+    run with `--device cpu` (other RANSAC draws: the generators differ)."""
+    from aslam_tpu_torch import main as cli
+    from aslam_tpu_torch.config import small_config
+    from aslam_tpu_torch.utils import dataset, synthetic, trajectory
+
+    _card()
+    cfg = small_config()
+    n = 10
+    rng = np.random.default_rng(4)
+    pts = synthetic.random_scene(rng, 500)
+    poses = synthetic.camera_trajectory(n, step_t=0.05, step_r=0.02, rng=rng)
+    tex = synthetic.point_textures(500, seed=5)
+    imgs = [np.clip(synthetic.render_intensity_image(cfg.camera, T, pts, tex),
+                    0, 255).astype(np.uint8) for T in poses]
+    deps = [np.clip(synthetic.render_depth_image(cfg.camera, T, pts, splat=4)
+                    / cfg.camera.depth_factor, 0, 65535).astype(np.uint16)
+            for T in poses]
+    root = str(tmp_path / "tum")
+    dataset.write_tum_sequence(root, imgs, deps,
+                               [100.0 + 0.033 * i for i in range(n)])
+    cli.CAMERAS["test"] = cfg.camera
+
+    def run(out, *device):
+        before = hamming_top2.launches
+        cli.main(["--dataset", root, "--camera", "test", "--out-dir",
+                  str(tmp_path / out), *flags, *device], base_config=cfg)
+        _, xyz, _ = trajectory.load_tum_trajectory(
+            str(tmp_path / out / "CameraTrajectory.txt"))
+        return xyz, hamming_top2.launches - before
+
+    card, launched = run("card")                 # the default device
+    cpu, launched_cpu = run("cpu", "--device", "cpu")
+    assert launched == n - 1 and launched_cpu == 0
+    assert card.shape == (n, 3) and np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, atol=0.01)
+    gt = trajectory.camera_centers(poses)
+    assert trajectory.ate_rmse(card, gt) < 0.03
+    host = flags[-1] == "host"
+    for name in ("KeyFrameTrajectory.txt", "Histogram.csv"):
+        assert (tmp_path / "card" / name).exists() == host
+    assert (tmp_path / "card" / "metrics.json").exists()

@@ -209,3 +209,53 @@ def test_in_frustum_matches_reference(margin):
     np.testing.assert_allclose(out[2], ref[2], atol=1e-5)
     np.testing.assert_allclose(out[3][front], ref[3][front], rtol=1e-5,
                                atol=1e-3)
+
+
+def test_R_to_quat_matches_reference():
+    """Every branch (trace > 0 and each dominant diagonal entry): rotations
+    by up to pi about random axes and about each coordinate axis."""
+    rng = _rng()
+    Rs = np.concatenate([
+        _rotations(rng, 64), _rotations(rng, 64, scale=3.0),
+        np.asarray(jse3.so3_exp(jnp.asarray(
+            np.eye(3, dtype=np.float32) * 3.1))),
+        np.eye(3, dtype=np.float32)[None]])
+    q_j = np.asarray(jse3.R_to_quat(jnp.asarray(Rs)))
+    q_t = P.n(tse3.R_to_quat(P.t(Rs)))
+    np.testing.assert_allclose(q_t, q_j, atol=TOL)
+    tr = np.trace(Rs, axis1=1, axis2=2)
+    assert (tr <= 0).sum() >= 8 and (tr > 0).sum() >= 8
+    np.testing.assert_allclose(np.linalg.norm(q_t, axis=1), 1.0, atol=1e-5)
+    # and back
+    np.testing.assert_allclose(P.n(tse3.quat_to_R(P.t(q_t))), Rs, atol=1e-4)
+
+
+def test_trajectory_metrics_match_reference(tmp_path):
+    from aslam_tpu.utils import trajectory as jtraj
+    from aslam_tpu_torch.utils import trajectory as ttraj
+
+    rng = _rng()
+    gt = _poses(rng, 40)
+    noise = np.concatenate([rng.normal(size=(40, 3)) * 0.01,
+                            rng.normal(size=(40, 3)) * 0.005], -1)
+    est = np.asarray(jse3.se3_exp(jnp.asarray(noise.astype(np.float32)))) @ gt
+    for delta in (1, 5):
+        np.testing.assert_allclose(ttraj.rpe_rmse(est, gt, delta),
+                                   jtraj.rpe_rmse(est, gt, delta), rtol=1e-9)
+    ate_j = float(jtraj.ate_rmse_device(jnp.asarray(est), jnp.asarray(gt)))
+    ate_t = ttraj.ate_rmse_device(P.t(est), P.t(gt))
+    assert ate_t.shape == () and 0.005 < float(ate_t) < 0.05
+    np.testing.assert_allclose(float(ate_t), ate_j, rtol=1e-4)
+    np.testing.assert_allclose(
+        float(ate_t), ttraj.ate_rmse(ttraj.camera_centers(est),
+                                     ttraj.camera_centers(gt)), rtol=1e-4)
+    # the TUM file, as the reference writes it
+    ts = np.arange(40) * 0.033 + 1305031102.175304
+    pj, pt = str(tmp_path / "j.txt"), str(tmp_path / "t.txt")
+    jtraj.save_tum_trajectory(pj, ts, est)
+    ttraj.save_tum_trajectory(pt, ts, est)
+    a, b = np.loadtxt(pt), np.loadtxt(pj)
+    np.testing.assert_allclose(a, b, atol=2e-6)
+    t_l, xyz, quat = ttraj.load_tum_trajectory(pt)
+    np.testing.assert_allclose(xyz, ttraj.camera_centers(est), atol=1e-5)
+    assert quat.shape == (40, 4) and t_l[0] == pytest.approx(ts[0], abs=1e-6)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import _torch_parity as P
+from aslam_tpu_torch.utils import se3 as tse3
 from aslam_tpu.models import loopclosing as jlc
 from aslam_tpu.ops import global_ba as jgba
 from aslam_tpu.ops import lba as jlba
@@ -133,3 +134,53 @@ def test_pose_graph_optimize_matches_reference(maps):
     still = P.n(pg_t.node_fixed | ~pg_t.node_valid)
     np.testing.assert_array_equal(P.n(out_t.T)[still], P.n(pg_t.T)[still])
     assert still[0] and not still[19]
+
+
+def _chain_graph(rng, n=12):
+    """A drifted odometry chain closed by one strong loop edge
+    (tests/test_pose_graph.py::test_cg_matches_dense)."""
+    xi = np.concatenate([rng.normal(0, 0.1, (n, 3)) + [0.3, 0, 0],
+                         rng.normal(0, 0.05, (n, 3))], -1).astype(np.float32)
+    step = P.n(tse3.se3_exp(P.t(xi)))
+    T_gt = [np.eye(4, dtype=np.float32)]
+    for k in range(1, n):
+        T_gt.append(step[k] @ T_gt[-1])
+    T_gt = np.stack(T_gt)
+    drift = P.n(tse3.se3_exp(P.t(
+        (rng.normal(0, 0.01, (n, 6))).astype(np.float32))))
+    T_est = [T_gt[0]]
+    for k in range(1, n):
+        T_est.append(drift[k] @ T_gt[k] @ np.linalg.inv(T_gt[k - 1]) @ T_est[-1])
+    T_est = np.stack(T_est).astype(np.float32)
+    e_i = np.arange(1, n, dtype=np.int32)
+    e_j = np.arange(0, n - 1, dtype=np.int32)
+    meas = np.stack([T_est[i] @ np.linalg.inv(T_est[j])
+                     for i, j in zip(e_i, e_j)])
+    e_i = np.concatenate([e_i, [n - 1]]).astype(np.int32)
+    e_j = np.concatenate([e_j, [0]]).astype(np.int32)
+    meas = np.concatenate([meas, (T_gt[-1] @ np.linalg.inv(T_gt[0]))[None]]) \
+        .astype(np.float32)
+    w = np.ones(n, np.float32)
+    w[-1] = 10.0
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    return dict(T=T_est, node_valid=np.ones(n, bool), node_fixed=fixed,
+                e_i=e_i, e_j=e_j, e_meas=meas, e_w=w)
+
+
+def test_pose_graph_optimize_cg_matches_reference_and_dense():
+    """The matrix-free solver loop closing takes above 256 keyframes: equal
+    to the reference's `optimize_cg` on the same graph, and to the port's
+    dense solver as tests/test_pose_graph.py:109 holds the reference's."""
+    g = _chain_graph(np.random.default_rng(3))
+    pg_j = jpg.PoseGraph(**{k: jnp.asarray(v) for k, v in g.items()})
+    pg_t = tpg.PoseGraph(**{k: P.t(v) for k, v in g.items()})
+    cg_j = jpg.optimize_cg(pg_j, iters=15, cg_iters=100)
+    cg_t = tpg.optimize_cg(pg_t, iters=15, cg_iters=100)
+    np.testing.assert_allclose(P.n(cg_t.T), np.asarray(cg_j.T), atol=1e-4)
+    dense = tpg.optimize(pg_t, iters=15)
+    e0, e_cg, e_dense = (float(tpg.total_error(x)) for x in (pg_t, cg_t, dense))
+    assert e_cg < 0.2 * e0
+    assert e_cg < 1.5 * e_dense + 1e-5
+    np.testing.assert_allclose(P.n(cg_t.T), P.n(dense.T), atol=5e-3)
+    np.testing.assert_array_equal(P.n(cg_t.T[0]), g["T"][0])    # the gauge

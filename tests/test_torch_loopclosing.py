@@ -326,14 +326,25 @@ def test_batched_sync_closes_the_loop_with_counted_reads(walk):
 
 @pytest.mark.parametrize("what", ["optimize_cg", "sharded_gn_cg"])
 def test_unported_paths_raise_an_error_that_names_them(what):
+    """`sharded_gn_cg` still waits and says so; `optimize_cg`, once refused,
+    is ported: above 256 keyframes the walk closes its loop through it."""
     pcfg = P.port_config(walk_cfg())
     if what == "optimize_cg":      # taken above 256 keyframes
         pcfg = pcfg.replace(map=dataclasses.replace(pcfg.map, max_keyframes=288))
     else:
         pcfg = pcfg.replace(loop=dataclasses.replace(
             pcfg.loop, post_gba_method="sharded_gn_cg"))
-    m, *_ = looped_map(pcfg, "cpu", seed=1234)
+    m, T_true, T_est, _ = looped_map(pcfg, "cpu", seed=1234)
     lt = tlc.LoopClosing(pcfg, "cpu", train_after_kfs=4)
+    if what == "optimize_cg":
+        for k in range(N_KFS):
+            m = lt.process_keyframe(m, k, k)
+        (q, c), = lt.loops
+        assert q >= N_KFS // 2 > c and torch.isfinite(m.kf_T_cw).all()
+        before = np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3])
+        after = np.linalg.norm(P.n(m.kf_T_cw[q])[:3, 3] - T_true[q][:3, 3])
+        assert after < 0.8 * before, (before, after)
+        return
     with pytest.raises(NotImplementedError, match=what):
         for k in range(N_KFS):
             m = lt.process_keyframe(m, k, k)

@@ -310,3 +310,63 @@ def test_rebuild_observer_index_matches_reference(walk):
     n_ok = P.n(ok.sum(1))
     assert (n_ok >= 1).all() and (n_ok <= counts).all()
     assert (n_ok == counts).mean() > 0.8
+
+
+@pytest.mark.parametrize("name", ["observation_counts",
+                                  "observation_counts_weighted",
+                                  "landmark_mask_of_kfs", "kf_votes",
+                                  "covis_row", "covis_rows"])
+def test_derived_queries_match_reference(walk, name):
+    """The O(K*M) queries over the observation table that only the host
+    engine and the exports reach: integer outputs, equal."""
+    _, m, _, _ = walk
+    mt, mj = P.port_map(m), P.jtree(m)
+    rng = np.random.default_rng(7)
+    K, L = m.kf_valid.shape[0], m.lm_pos.shape[0]
+    live = np.nonzero(m.kf_valid)[0]
+    if name in ("observation_counts", "observation_counts_weighted"):
+        out, ref = getattr(tms, name)(mt), getattr(jms, name)(mj)
+        assert out.dtype == torch.int32 and P.n(out).max() >= 2
+    elif name == "landmark_mask_of_kfs":
+        mask = rng.random(K) > 0.4
+        mask[live[0]] = True
+        out = tms.landmark_mask_of_kfs(mt, P.t(mask))
+        ref = jms.landmark_mask_of_kfs(mj, jnp.asarray(mask))
+        assert 0 < int(out.sum()) <= int(m.lm_valid.sum())
+    elif name == "kf_votes":
+        mask = rng.random(L) > 0.5
+        out = tms.kf_votes(mt, P.t(mask))
+        ref = jms.kf_votes(mj, jnp.asarray(mask))
+        assert int(out.sum()) > 0
+    elif name == "covis_row":
+        for s in (int(live[0]), int(live[-1]), K - 1):
+            np.testing.assert_array_equal(
+                P.n(tms.covis_row(mt, s)),
+                np.asarray(jms.covis_row(mj, jnp.int32(s))))
+        # where no observer ring has overflowed, the index gives the same
+        np.testing.assert_array_equal(P.n(tms.covis_row(mt, int(live[-1]))),
+                                      P.n(tms.covis_row_fast(mt, int(live[-1]))))
+        return
+    else:
+        slots = [int(s) for s in live[:3]] + [K - 1]
+        out = tms.covis_rows(mt, slots)
+        ref = jms.covis_rows(mj, jnp.asarray(slots, jnp.int32))
+        assert out.shape == (4, K)
+    np.testing.assert_array_equal(P.n(out), np.asarray(ref))
+
+
+@pytest.mark.parametrize("max_obs", [8, 2])
+def test_refresh_landmark_descriptors_matches_reference(walk, max_obs):
+    """The whole-table medoid refresh for a landmark mask."""
+    _, m, _, _ = walk
+    rng = np.random.default_rng(5)
+    mask = rng.random(m.lm_pos.shape[0]) > 0.3
+    out = tms.refresh_landmark_descriptors(P.port_map(m), P.t(mask),
+                                           max_obs=max_obs)
+    ref = jms.refresh_landmark_descriptors(P.jtree(m), jnp.asarray(mask),
+                                           max_obs=max_obs)
+    P.assert_maps_equal(out, P.tree_np(ref), atol=0)
+    # untouched outside the mask
+    keep = ~mask
+    np.testing.assert_array_equal(P.n(out.lm_desc)[keep],
+                                  P.words(m.lm_desc)[keep])

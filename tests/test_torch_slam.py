@@ -33,7 +33,6 @@ import _torch_parity as P
 from aslam_tpu.config import small_config
 from aslam_tpu.models import device_slam as jds
 from aslam_tpu.models import frame as jframe
-from aslam_tpu.ops import matching as jmatch
 from aslam_tpu_torch import convert
 from aslam_tpu_torch.device import read_host
 from aslam_tpu_torch.models import device_slam as tds
@@ -52,20 +51,7 @@ def walk():
     return cfg, imgs, depths, poses, dev, before, traj, stats
 
 
-def _ref_draws(f1, f2, key, cfg):
-    """The samples the reference's rba_step draws for this frame pair
-    (`aslam_tpu/ops/ransac.py:113`)."""
-    m = jmatch.resolve_duplicates(jmatch.knn_ratio_match(
-        f1.feat.desc, f1.feat.valid, f2.feat.desc, f2.feat.valid,
-        ratio=cfg.matcher.ratio_frame, max_dist=float(cfg.matcher.th_high)),
-        f2.feat.desc.shape[0])
-    tgt = np.maximum(np.asarray(m.target_idx), 0)
-    p1, p2 = np.asarray(f1.p3d), np.asarray(f2.p3d)[tgt]
-    good = (np.asarray(m.valid) & np.asarray(f1.has_depth)
-            & np.asarray(f2.has_depth)[tgt] & (p1[:, 2] > 0) & (p2[:, 2] > 0))
-    r = cfg.ransac
-    return np.asarray(jax.random.randint(
-        key, (r.n_hypotheses, r.sample_size), 0, max(int(good.sum()), 1)))
+_ref_draws = P.ref_draws
 
 
 @pytest.mark.parametrize("kind", ["keyframe", "tracked"])
@@ -213,15 +199,21 @@ def test_convert_slam_state_and_unported_configs(walk):
     assert torch.isfinite(T3).all() and stats3[0] > 20
     assert read_host.count - reads <= 2        # need_kf (+ the LBA gate)
 
-    # the matrix-free pose-graph solver is taken above 256 keyframes
+    # the matrix-free pose-graph solver, taken above 256 keyframes, and the
+    # session methods, all once refused, are ported
     big = pcfg.replace(map=dataclasses.replace(pcfg.map, max_keyframes=264))
     m, *_ = looped_map(big, "cpu", seed=1234)
     lc = LoopClosing(big, "cpu", train_after_kfs=4)
-    with pytest.raises(NotImplementedError, match="optimize_cg"):
-        for k in range(20):
-            m = lc.process_keyframe(m, k, k)
+    for k in range(20):
+        m = lc.process_keyframe(m, k, k)
+    assert len(lc.loops) == 1 and torch.isfinite(m.kf_T_cw).all()
     for name in ("save", "resume", "new_sequence"):
-        assert not hasattr(tds.DeviceSlam, name)
+        assert callable(getattr(tds.DeviceSlam, name))
+    # what still waits says so
+    waiting = pcfg.replace(loop=dataclasses.replace(
+        pcfg.loop, post_gba_method="sharded_gn_cg"))
+    with pytest.raises(NotImplementedError, match="sharded_gn_cg"):
+        LoopClosing(waiting, "cpu")._post_loop_gba(st.m)
 
 
 N_LOOP = 30
