@@ -50,25 +50,20 @@ def build_config(args, base: SystemConfig | None = None) -> SystemConfig:
         use_gicp=args.mode == "slam+gicp",
         use_loop_closing=args.mode in ("slam+loop", "slam+gicp"))
     if args.detector != "FAST" or args.descriptor != "ORB":
-        from aslam_tpu_torch.models.extractor import DETECTOR_ALIASES
         from aslam_tpu_torch.ops import desc as desc_ops
+        from aslam_tpu_torch.ops import detectors
 
-        if not desc_ops.is_binary(args.descriptor) and args.mode != "vo":
+        try:
+            detectors.canonical(args.detector)
+            binary = desc_ops.is_binary(args.descriptor)
+        except ValueError as e:   # a misspelt family: the message lists them
+            raise SystemExit(f"aslam_tpu_torch.main: {e}") from None
+        if not binary and args.mode != "vo":
             raise SystemExit(
                 f"--descriptor {args.descriptor} is a float (L2) family; the "
                 "map/BoW schema is binary — use it with --mode vo, or pick a "
                 "binary descriptor (ORB, BRIEF, FREAK, LATCH) for SLAM modes"
             )
-        det = args.detector.upper()
-        if DETECTOR_ALIASES.get(det, det) != "FAST":
-            raise SystemExit(
-                f"--detector {args.detector} needs aslam_tpu_torch/ops/"
-                "detectors.py, which is not ported yet: only FAST is")
-        if desc_ops.canonical(args.descriptor) != "ORB":
-            raise SystemExit(
-                f"--descriptor {args.descriptor} needs the non-ORB families "
-                "of aslam_tpu_torch/ops/desc.py, which are not ported yet: "
-                "only ORB is")
         cfg = cfg.replace(extractor=dataclasses.replace(
             cfg.extractor, detector=args.detector, descriptor=args.descriptor))
     if args.pose_prior is not None:
@@ -94,9 +89,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     ap.add_argument("--detector", default="FAST",
-                    help="FAST (the other families are not ported yet)")
+                    help="FAST, GFTT, HARRIS, DOG, HESSIAN or STAR (or a "
+                         "reference alias: ORB, SIFT, SURF, SHI_TOMASI, ...)")
     ap.add_argument("--descriptor", default="ORB",
-                    help="ORB (the other families are not ported yet)")
+                    help="ORB, BRIEF, FREAK, LATCH (binary) or SIFT (float, "
+                         "--mode vo only)")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=1,
                     help="frames per process_chunk call (device engine "

@@ -1,32 +1,34 @@
-"""Adaptive multi-scale ORB extractor — the feature front-end.
+"""Adaptive multi-scale extractor — the feature front-end facade.
 
-Port of `aslam_tpu/models/extractor.py` for the FAST detector, with the
-adaptive threshold controller on or off.  Per frame:
+Port of `aslam_tpu/models/extractor.py`, every detector family (FAST, GFTT,
+HARRIS, DOG, HESSIAN, STAR, `ops/detectors.py`) and every descriptor family
+(ORB, BRIEF, FREAK, LATCH, SIFT, `ops/desc.py`), with the adaptive threshold
+controller on or off.  Per frame:
   1. 8-level x1.2 image pyramid (ops/pyramid.py)
-  2. with adaptive mode, `adaptive_iters - 1` counting passes of FAST + NMS
-     on level 0 that update the [3,3] threshold grid within the frame
-  3. per level: FAST-9 under the per-pixel threshold map, 3x3 NMS, a border
-     strip cleared for the descriptor patches, grid top-k (quota per level
-     = geometric allocation of n_features), sub-pixel refinement
-  4. Gaussian blur + IC angle + rBRIEF (ops/orb.py)
+  2. with adaptive mode, `adaptive_iters - 1` counting passes of the
+     detector + NMS on level 0 that update the [3,3] threshold grid within
+     the frame
+  3. per level: the detector's response under the per-pixel threshold map,
+     3x3 NMS, a border strip cleared for the descriptor patches, grid top-k
+     (quota per level = geometric allocation of n_features), sub-pixel
+     refinement
+  4. Gaussian blur + the descriptor family (IC angle + rBRIEF for ORB)
   5. a global merge into [max_keypoints] arrays with a validity mask,
      coordinates in level-0 pixels
-  6. the grid update from the per-cell corner counts of all levels.
-The other detector families of the reference raise `NotImplementedError`.
+  6. the grid update from the per-cell corner counts of all levels, clamped
+     to the family's [th_min, th_max] (`detector_params`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from aslam_tpu_torch.config import ExtractorConfig
 from aslam_tpu_torch.ops import desc as desc_ops
-from aslam_tpu_torch.ops import fast, orb, pyramid, select
-
-DETECTOR_ALIASES = {"ORB": "FAST", "ORB_SLAM2": "FAST", "BRISK": "FAST",
-                    "AGAST": "FAST"}
+from aslam_tpu_torch.ops import detectors, fast, orb, pyramid, select
 
 
 class Features(NamedTuple):
@@ -36,35 +38,50 @@ class Features(NamedTuple):
     response: torch.Tensor  # [M] float32
     angle: torch.Tensor     # [M] float32 radians
     octave: torch.Tensor    # [M] int32 pyramid level
-    desc: torch.Tensor      # [M,8] int32 packed binary (uint32 bit patterns)
+    desc: torch.Tensor      # [M,8] int32 packed binary (uint32 bit patterns),
+                            # or [M,128] float32 (SIFT)
     valid: torch.Tensor     # [M] bool
 
 
-def _check_detector(cfg: ExtractorConfig) -> None:
-    det = cfg.detector.upper()
-    if DETECTOR_ALIASES.get(det, det) != "FAST":
-        raise NotImplementedError(
-            f"detector {cfg.detector} is not ported yet; only FAST is")
+class AdaptiveState(NamedTuple):
+    """Per-cell detector thresholds carried across frames."""
+
+    grid_thresholds: torch.Tensor  # [gy,gx] float32
+
+
+def detector_params(cfg: ExtractorConfig) -> tuple[float, float, float]:
+    """(initial threshold, clamp min, clamp max) for cfg.detector: FAST keeps
+    the config's FAST fields, the other families their calibrated defaults
+    (`ops/detectors.py::DETECTOR_DEFAULTS`)."""
+    if detectors.canonical(cfg.detector) == "FAST":
+        return (float(cfg.fast_threshold), float(cfg.adaptive_th_min),
+                float(cfg.adaptive_th_max))
+    d = detectors.defaults(cfg.detector)
+    return d["threshold"], d["th_min"], d["th_max"]
 
 
 def init_grid_thresholds(cfg: ExtractorConfig,
                          device: torch.device | str) -> torch.Tensor:
-    """The adaptive [g,g] threshold grid at its initial FAST threshold."""
-    _check_detector(cfg)
+    """The adaptive [g,g] threshold grid at the family's initial threshold."""
     g = cfg.adaptive_grid
-    return torch.full((g, g), float(cfg.fast_threshold), dtype=torch.float32,
+    return torch.full((g, g), detector_params(cfg)[0], dtype=torch.float32,
                       device=device)
+
+
+def init_adaptive_state(cfg: ExtractorConfig,
+                        device: torch.device | str = "cuda") -> AdaptiveState:
+    return AdaptiveState(grid_thresholds=init_grid_thresholds(cfg, device))
 
 
 def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
                   cfg: ExtractorConfig):
     """img [H,W] float32 -> (Features, new grid thresholds [g,g])."""
-    _check_detector(cfg)
     dev = img.device
     levels = pyramid.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     quotas = cfg.features_per_level
     scales = cfg.scale_factors
-    th_lo, th_hi = float(cfg.adaptive_th_min), float(cfg.adaptive_th_max)
+    det = detectors.canonical(cfg.detector)
+    _, th_lo, th_hi = detector_params(cfg)
     g = cfg.adaptive_grid
     n_cells = g * g
 
@@ -74,6 +91,9 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
             max_count=cfg.adaptive_max / n_cells, down=cfg.adaptive_down,
             up=cfg.adaptive_up, th_min=th_lo, th_max=th_hi)
 
+    def response(img_l, th_map):
+        return detectors.response(det, img_l, th_map)
+
     if cfg.adaptive and cfg.adaptive_iters > 1:
         # intra-frame controller passes, counting on level 0 only
         base = levels[0]
@@ -81,7 +101,7 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
         for _ in range(cfg.adaptive_iters - 1):
             th0 = fast.threshold_map_from_grid(grid_thresholds, h0, w0)
             counts = fast.counts_per_grid_cell(
-                fast.nms_3x3(fast.fast_response(base, th0)), g, g)
+                fast.nms_3x3(response(base, th0)), g, g)
             grid_thresholds = update(grid_thresholds, counts)
 
     all_xy, all_resp, all_valid, all_oct, all_desc, all_angle = \
@@ -91,18 +111,20 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
     for l, img_l in enumerate(levels):
         h, w = img_l.shape
         th_map = fast.threshold_map_from_grid(grid_thresholds, h, w)
-        resp_raw = fast.fast_response(img_l, th_map)
+        resp_raw = response(img_l, th_map)
         if not cfg.adaptive:
-            # static mode: cells with no corner retry at the minimum threshold
+            # static mode: cells with no corner retry at the minimum
+            # threshold (FAST's fallback field, the other families' th_min)
+            fallback_th = (float(cfg.fast_threshold_min) if det == "FAST"
+                           else th_lo)
             weak_cells = fast.counts_per_grid_cell(resp_raw, g, g) == 0
             th_low_map = fast.threshold_map_from_grid(
                 torch.where(weak_cells,
-                            torch.full_like(grid_thresholds,
-                                            float(cfg.fast_threshold_min)),
+                            torch.full_like(grid_thresholds, fallback_th),
                             grid_thresholds), h, w)
             weak_px = fast.threshold_map_from_grid(
                 weak_cells.to(torch.float32), h, w) > 0
-            resp_raw = torch.where(weak_px, fast.fast_response(img_l, th_low_map),
+            resp_raw = torch.where(weak_px, response(img_l, th_low_map),
                                    resp_raw)
         resp = fast.nms_3x3(resp_raw)
         # keep the descriptors' patches inside the image
@@ -157,3 +179,33 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
     new_grid = update(grid_thresholds, total_counts) if cfg.adaptive \
         else grid_thresholds
     return feats, new_grid
+
+
+class Extractor:
+    """Stateful facade: owns the adaptive threshold grid across a video."""
+
+    def __init__(self, cfg: ExtractorConfig, device: torch.device | str = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.state = init_adaptive_state(cfg, self.device)
+
+    def extract(self, img) -> Features:
+        """img: [H,W] gray (numpy or tensor) -> Features on the extractor's
+        device (updates the adaptive state)."""
+        if not isinstance(img, torch.Tensor):
+            img = torch.from_numpy(np.asarray(img, np.float32))
+        img = img.to(self.device, torch.float32)
+        feats, new_grid = _extract_impl(img, self.state.grid_thresholds,
+                                        self.cfg)
+        self.state = AdaptiveState(grid_thresholds=new_grid)
+        return feats
+
+
+def extract_features(img: torch.Tensor, cfg: ExtractorConfig,
+                     state: AdaptiveState | None = None):
+    """Functional entry: img [H,W] float32 tensor -> (Features,
+    AdaptiveState), on the image's device."""
+    if state is None:
+        state = init_adaptive_state(cfg, img.device)
+    feats, new_grid = _extract_impl(img, state.grid_thresholds, cfg)
+    return feats, AdaptiveState(grid_thresholds=new_grid)

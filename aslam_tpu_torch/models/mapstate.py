@@ -26,7 +26,8 @@ import torch
 from aslam_tpu_torch.config import SystemConfig
 from aslam_tpu_torch.models.frame import FrameData
 from aslam_tpu_torch.ops import hamming
-from aslam_tpu_torch.ops.index import nonzero_static, pick, set_rows
+from aslam_tpu_torch.ops.index import (index_add_ordered, nonzero_static,
+                                       pick, set_rows)
 from aslam_tpu_torch.ops.matching import compact_candidates
 from aslam_tpu_torch.ops.select import topk_stable
 from aslam_tpu_torch.utils import camera
@@ -489,14 +490,16 @@ def refresh_landmark_positions(m: MapState, cfg: SystemConfig) -> MapState:
     sigma = 0.01 * m.kf_z * m.kf_z + 1e-3
     w = torch.where(obs_ok, 1.0 / (sigma * sigma), 0.0)
     idx = _where_i(obs_ok, m.kf_lm, L).reshape(-1)
+    ok = obs_ok.reshape(-1)
     flat_p = p_w.reshape(-1, 3)
 
     def weighted_mean(wv):
         fw = wv.reshape(-1)
-        sw = torch.zeros(L + 1, dtype=w.dtype, device=w.device) \
-            .index_add_(0, idx, fw)[:L]
-        sp = torch.zeros(L + 1, 3, dtype=w.dtype, device=w.device) \
-            .index_add_(0, idx, fw[:, None] * flat_p)[:L]
+        sw = index_add_ordered(torch.zeros(L + 1, dtype=w.dtype,
+                                           device=w.device), idx, fw, ok)[:L]
+        sp = index_add_ordered(torch.zeros(L + 1, 3, dtype=w.dtype,
+                                           device=w.device), idx,
+                               fw[:, None] * flat_p, ok)[:L]
         return sp / torch.clamp(sw, min=1e-12)[:, None], sw
 
     mean1, sw1 = weighted_mean(w)

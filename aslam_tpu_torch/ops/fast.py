@@ -59,6 +59,11 @@ def nms_3x3(score: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(score))
 
 
+def detect(img: torch.Tensor, threshold) -> torch.Tensor:
+    """FAST + NMS in one call."""
+    return nms_3x3(fast_response(img, threshold))
+
+
 def _cell_index(n: int, g: int, device) -> torch.Tensor:
     return torch.clamp((torch.arange(n, device=device) * g) // n, max=g - 1)
 

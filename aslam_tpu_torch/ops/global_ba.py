@@ -1,12 +1,11 @@
 """Global bundle adjustment over the whole map.
 
-Port of `aslam_tpu/ops/global_ba.py` (`ba_sweep_chunked`, the memory-bounded
-sweep for maps of 10k keyframes, is not ported yet).  Two methods:
+Port of `aslam_tpu/ops/global_ba.py`.  Two methods:
 
   "sweep"  alternating resection / intersection: a per-keyframe 6x6
            Gauss-Newton with the landmarks fixed, then a per-landmark 3x3
-           Gauss-Newton with the poses fixed (`index_add_` of the edge blocks
-           onto their landmarks);
+           Gauss-Newton with the poses fixed (an ordered scatter-add of the
+           edge blocks onto their landmarks, `ops/index.py`);
   "gn_cg"  one joint Gauss-Newton step over all poses and points per call,
            solved matrix-free by block-Jacobi-preconditioned CG with
            trace-scaled (relative) damping, optionally regularized by an
@@ -15,7 +14,9 @@ sweep for maps of 10k keyframes, is not ported yet).  Two methods:
 The edge list is the [K, M] observation grid itself.  Where the reference
 recomputes the Jacobian blocks in every CG product (to bound memory at 10k
 keyframes), `gn_cg_step` computes them once per step and keeps them (28 MB
-at 256 x 1024): the values are the same.  Nothing here reads the device.
+at 256 x 1024): the values are the same.  `ba_sweep_chunked` is the sweep
+for maps of 10k keyframes, streamed over keyframe chunks.  Nothing here reads
+the device.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from aslam_tpu_torch.config import BAConfig, CameraModel
 from aslam_tpu_torch.models.mapstate import MapState
 from aslam_tpu_torch.ops.ba import huber_weight, project_residual_jac
+from aslam_tpu_torch.ops.index import index_add_ordered
 from aslam_tpu_torch.ops.lba import ChainSpec
 from aslam_tpu_torch.ops.linalg import chol_inv, chol_solve
 from aslam_tpu_torch.ops.pose_graph import _edge_jacobians, edge_residual
@@ -105,11 +107,11 @@ def ba_sweep(m: MapState, cam: CameraModel, cfg: BAConfig,
     # ---- point sweep (poses fixed) ----
     r, _, Jp, w, chi2, active, lm = _edge_terms(m, cam, cfg, robust)
     wJp = w[..., None, None] * Jp                             # [K,M,3,3]
-    flat = lm.reshape(-1)
-    Hll = torch.zeros(L, 9, **z).index_add_(
-        0, flat, torch.einsum("kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9))
-    bl = torch.zeros(L, 3, **z).index_add_(
-        0, flat, torch.einsum("kmri,kmr->kmi", wJp, r).reshape(-1, 3))
+    flat, act = lm.reshape(-1), active.reshape(-1)
+    Hll = index_add_ordered(torch.zeros(L, 9, **z), flat, torch.einsum(
+        "kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9), act)
+    bl = index_add_ordered(torch.zeros(L, 3, **z), flat, torch.einsum(
+        "kmri,kmr->kmi", wJp, r).reshape(-1, 3), act)
     Hll = Hll.reshape(L, 3, 3)
     Hll = Hll + lam * eye3 * torch.clamp(_trace(Hll)[:, None, None] / 3.0,
                                          min=1e-6) + 1e-8 * eye3
@@ -159,17 +161,17 @@ def gn_cg_step(m: MapState, cam: CameraModel, cfg: BAConfig,
     pt_free = m.lm_valid
 
     # ---- gradient b and block-diagonal preconditioner ----
-    r, Jc, Jp, w, _, _, lm = _edge_terms(m, cam, cfg, robust)
-    flat = lm.reshape(-1)
+    r, Jc, Jp, w, _, active, lm = _edge_terms(m, cam, cfg, robust)
+    # inactive edges weigh 0: left out of every scatter-add
+    flat, act = lm.reshape(-1), active.reshape(-1)
     wJc = w[..., None, None] * Jc
     wJp = w[..., None, None] * Jp
     bc = torch.einsum("kmri,kmr->ki", wJc, r)
     Dc = torch.einsum("kmri,kmrj->kij", wJc, Jc)
-    bl = torch.zeros(L, 3, **z).index_add_(
-        0, flat, torch.einsum("kmri,kmr->kmi", wJp, r).reshape(-1, 3))
-    Dl = torch.zeros(L, 9, **z).index_add_(
-        0, flat, torch.einsum("kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9)
-    ).reshape(L, 3, 3)
+    bl = index_add_ordered(torch.zeros(L, 3, **z), flat, torch.einsum(
+        "kmri,kmr->kmi", wJp, r).reshape(-1, 3), act)
+    Dl = index_add_ordered(torch.zeros(L, 9, **z), flat, torch.einsum(
+        "kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9), act).reshape(L, 3, 3)
 
     # odometry-chain regularizer: relative-pose edges between consecutive
     # KFs anchored at the incoming chain; without it a whole-map
@@ -181,10 +183,10 @@ def gn_cg_step(m: MapState, cam: CameraModel, cfg: BAConfig,
         Ji, Jj = _edge_jacobians(T_i, T_j, chain.c_meas)
         wJi = chain.c_w[:, None, None] * Ji
         wJj = chain.c_w[:, None, None] * Jj
-        bc = bc.index_add(0, c_i, torch.einsum("eri,er->ei", wJi, r_ch))
-        bc = bc.index_add(0, c_j, torch.einsum("eri,er->ei", wJj, r_ch))
-        Dc = Dc.index_add(0, c_i, torch.einsum("eri,erj->eij", wJi, Ji))
-        Dc = Dc.index_add(0, c_j, torch.einsum("eri,erj->eij", wJj, Jj))
+        index_add_ordered(bc, c_i, torch.einsum("eri,er->ei", wJi, r_ch))
+        index_add_ordered(bc, c_j, torch.einsum("eri,er->ei", wJj, r_ch))
+        index_add_ordered(Dc, c_i, torch.einsum("eri,erj->eij", wJi, Ji))
+        index_add_ordered(Dc, c_j, torch.einsum("eri,erj->eij", wJj, Jj))
 
     bc = torch.where(cam_free[:, None], bc, 0.0)
     bl = torch.where(pt_free[:, None], bl, 0.0)
@@ -198,13 +200,13 @@ def gn_cg_step(m: MapState, cam: CameraModel, cfg: BAConfig,
              + torch.einsum("kmri,kmi->kmr", Jp, vl[lm]))
         wq = w[..., None] * q
         oc = torch.einsum("kmri,kmr->ki", Jc, wq)
-        ol = torch.zeros(L, 3, **z).index_add_(
-            0, flat, torch.einsum("kmri,kmr->kmi", Jp, wq).reshape(-1, 3))
+        ol = index_add_ordered(torch.zeros(L, 3, **z), flat, torch.einsum(
+            "kmri,kmr->kmi", Jp, wq).reshape(-1, 3), act)
         if chain is not None:
             qc = (torch.einsum("eij,ej->ei", Ji, vc[c_i])
                   + torch.einsum("eij,ej->ei", Jj, vc[c_j]))
-            oc = oc.index_add(0, c_i, torch.einsum("eri,er->ei", wJi, qc))
-            oc = oc.index_add(0, c_j, torch.einsum("eri,er->ei", wJj, qc))
+            index_add_ordered(oc, c_i, torch.einsum("eri,er->ei", wJi, qc))
+            index_add_ordered(oc, c_j, torch.einsum("eri,er->ei", wJj, qc))
         oc = torch.where(cam_free[:, None], oc + lam_c[:, None] * vc, 0.0)
         ol = torch.where(pt_free[:, None], ol + lam_l[:, None] * vl, 0.0)
         return oc, ol
@@ -241,3 +243,71 @@ def gn_cg_step(m: MapState, cam: CameraModel, cfg: BAConfig,
     m = m._replace(kf_T_cw=se3_exp(dxc) @ m.kf_T_cw, lm_pos=m.lm_pos + dxl)
     _, _, _, _, chi2, active, _ = _edge_terms(m, cam, cfg, robust=False)
     return m, _stats(chi2, active)
+
+
+# ------------------------------------------------------------------ chunked
+
+_KF_FIELDS = ("kf_T_cw", "kf_valid", "kf_id", "kf_xy", "kf_ur", "kf_z",
+              "kf_desc", "kf_octave", "kf_kp_valid", "kf_lm")
+
+
+def ba_sweep_chunked(m: MapState, cam: CameraModel, cfg: BAConfig,
+                     robust: bool = True, lam: float = 1e-4,
+                     kf_chunk: int = 256):
+    """`ba_sweep` with bounded memory, for maps of 10k+ keyframes: the pose
+    sweep and the landmark normal equations are streamed over keyframe rows
+    in chunks of `kf_chunk`, so the extra memory is O(kf_chunk * M * 18)
+    instead of the [K, M, 3, 6] Jacobian blocks.  The same math as
+    `ba_sweep`."""
+    K = m.kf_lm.shape[0]
+    L = m.lm_pos.shape[0]
+    if K % kf_chunk:
+        raise ValueError(f"K={K} must divide by kf_chunk={kf_chunk}")
+    z = dict(dtype=m.lm_pos.dtype, device=m.lm_pos.device)
+    eye6, eye3 = torch.eye(6, **z), torch.eye(3, **z)
+    oldest = _oldest(m)
+
+    def chunk_view(mm, c):
+        sl = slice(c * kf_chunk, (c + 1) * kf_chunk)
+        return mm._replace(**{f: getattr(mm, f)[sl] for f in _KF_FIELDS})
+
+    # ---- pose sweep, chunked ----
+    new_T = []
+    for c in range(K // kf_chunk):
+        mc = chunk_view(m, c)
+        r, Jc, _, w, _, _, _ = _edge_terms(mc, cam, cfg, robust)
+        H = torch.einsum("km,kmri,kmrj->kij", w, Jc, Jc)
+        b = torch.einsum("km,kmri,kmr->ki", w, Jc, r)
+        H = H + lam * eye6 * torch.clamp(_trace(H)[:, None, None] / 6.0,
+                                         min=1e-6) + 1e-8 * eye6
+        dx = -chol_solve(H, b)
+        rows = c * kf_chunk + torch.arange(kf_chunk, device=dx.device)
+        freeze = (rows == oldest) | ~mc.kf_valid
+        dx = torch.where(torch.isfinite(dx) & ~freeze[:, None], dx, 0.0)
+        new_T.append(se3_exp(dx) @ mc.kf_T_cw)
+    m = m._replace(kf_T_cw=torch.cat(new_T))
+
+    # ---- point sweep, the normal equations accumulated over chunks ----
+    Hll = torch.zeros(L, 9, **z)
+    bl = torch.zeros(L, 3, **z)
+    chi2_sum = torch.zeros((), **z)
+    n_act = torch.zeros((), dtype=torch.int32, device=m.lm_pos.device)
+    for c in range(K // kf_chunk):
+        r, _, Jp, w, chi2, active, lm = _edge_terms(chunk_view(m, c), cam,
+                                                    cfg, robust)
+        wJp = w[..., None, None] * Jp
+        flat, act = lm.reshape(-1), active.reshape(-1)
+        index_add_ordered(Hll, flat, torch.einsum(
+            "kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9), act)
+        index_add_ordered(bl, flat, torch.einsum(
+            "kmri,kmr->kmi", wJp, r).reshape(-1, 3), act)
+        stats = _stats(chi2, active)
+        chi2_sum = chi2_sum + stats.chi2
+        n_act = n_act + stats.n_edges
+    Hll = Hll.reshape(L, 3, 3)
+    Hll = Hll + lam * eye3 * torch.clamp(_trace(Hll)[:, None, None] / 3.0,
+                                         min=1e-6) + 1e-8 * eye3
+    dxl = -chol_solve(Hll, bl)
+    dxl = torch.where(m.lm_valid[:, None] & torch.isfinite(dxl), dxl, 0.0)
+    return (m._replace(lm_pos=m.lm_pos + dxl),
+            GlobalBAStats(chi2=chi2_sum, n_edges=n_act))

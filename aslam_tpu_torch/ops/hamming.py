@@ -1,15 +1,16 @@
-"""Batched 256-bit Hamming distance — the matcher's core primitive.
+"""Descriptor distances — the matcher's core primitive.
 
-Port of `aslam_tpu/ops/hamming.py` for packed binary descriptors (int32
-[N,8] words holding uint32 bit patterns, see `ops/orb.py`).
+Port of `aslam_tpu/ops/hamming.py`.  Binary descriptors are packed int32
+[N,8] words holding uint32 bit patterns (see `ops/orb.py`); the SIFT family
+is float32 [N,128].
 
   * `distance_matrix_popcount`: XOR plus a bit-sliced popcount, the exact
-    definition.
-  * `distance_matrix`: D = (256 - A·Bᵀ)/2 over ±1 planes.  Every dot product
-    is an integer in [-256, 256] and the matmul runs in full float32
-    (`device.py`), so it is exact and equal to the popcount.
-
-The float (SIFT-family) L2 path of the reference is not ported yet.
+    Hamming definition.
+  * `distance_matrix`: dispatches on the dtype, as the reference does.  For
+    packed words, D = (256 - A·Bᵀ)/2 over ±1 planes: every dot product is an
+    integer in [-256, 256] and the matmul runs in full float32
+    (`device.py`), so it is exact and equal to the popcount.  For float
+    descriptors, `l2_distance_matrix`.
 """
 
 from __future__ import annotations
@@ -27,10 +28,30 @@ def signs_from_packed(words: torch.Tensor) -> torch.Tensor:
     return unpack_bits(words).to(torch.float32) * 2.0 - 1.0
 
 
+def is_packed(desc: torch.Tensor) -> bool:
+    """True for packed binary words (int32, or uint32 where the caller has
+    them), False for float descriptors."""
+    return desc.dtype in (torch.int32, torch.uint32)
+
+
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """Hamming distances [Na, Nb] float32 over packed descriptors."""
+    """Descriptor distances [Na, Nb] float32: Hamming over packed words, L2
+    over float descriptors (the reference's dtype dispatch)."""
+    if not is_packed(desc_a):
+        return l2_distance_matrix(desc_a, desc_b)
     dot = signs_from_packed(desc_a) @ signs_from_packed(desc_b).T
     return (BITS - dot) * 0.5
+
+
+def l2_distance_matrix(desc_a: torch.Tensor,
+                       desc_b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances [Na, Nb] float32 between float descriptors:
+    |a-b|² = |a|² + |b|² - 2ab, the cross term a full-float32 matmul."""
+    a = desc_a.to(torch.float32)
+    b = desc_b.to(torch.float32)
+    sq = (torch.sum(a * a, dim=1)[:, None] + torch.sum(b * b, dim=1)[None, :]
+          - 2.0 * (a @ b.T))
+    return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

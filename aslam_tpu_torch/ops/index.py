@@ -14,6 +14,11 @@ Where several updates of one scatter-set name the same row with different
 values, XLA on the CPU applies them in order and the last one wins, while
 `index_put_` promises no winner.  `set_rows_last_wins` makes the reference's
 order explicit for the few call sites where such collisions occur.
+
+A float scatter-add is the same kind of trap: `index_add_` on the card adds
+with atomics, in whatever order the threads arrive, so two runs of one
+program differ in the last bits.  `index_add_ordered` sums every target's
+rows in one fixed order instead.
 """
 
 from __future__ import annotations
@@ -74,6 +79,42 @@ def set_rows_last_wins(x: torch.Tensor, idx, vals) -> torch.Tensor:
     vals = vals.expand(shape + x.shape[len(idx):]).reshape(
         (-1,) + x.shape[len(idx):])
     return set_rows(x, tuple(flat), vals)
+
+
+def _sorted_add(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """`out.index_add_(0, idx, src)` through `index_put_(accumulate=True)`:
+    on the card that sorts `idx` stably and adds each target's rows one after
+    another in that order, so the bits do not change between runs.  Rows
+    where `valid` is False go to scratch rows of their own, one each, and
+    are dropped."""
+    if valid is None:
+        return out.index_put_((idx,), src, accumulate=True)
+    rows, n = out.shape[0], idx.shape[0]
+    buf = torch.cat([out, out.new_zeros((n,) + out.shape[1:])])
+    scratch = torch.arange(rows, rows + n, dtype=idx.dtype, device=idx.device)
+    buf.index_put_((torch.where(valid, idx, scratch),), src, accumulate=True)
+    return out.copy_(buf[:rows])
+
+
+def index_add_ordered(out: torch.Tensor, idx: torch.Tensor,
+                      src: torch.Tensor,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """`out.index_add_(0, idx, src)` (in place; returns `out`) with every
+    target's rows summed in a fixed order on every device, the rows where
+    `valid` is False left out.  The CPU's `index_add_` already adds in index
+    order; on the card it adds with atomics, so there the sum goes through
+    `_sorted_add`.
+
+    The sorted sum walks each target's rows in sequence, so a target named
+    by most of the rows (the padding index every masked entry points to)
+    would serialise the call: pass `valid` wherever masked rows share an
+    index."""
+    if out.device.type != "cpu":
+        return _sorted_add(out, idx, src, valid)
+    if valid is not None:
+        idx, src = idx[valid], src[valid]
+    return out.index_add_(0, idx, src)
 
 
 def pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

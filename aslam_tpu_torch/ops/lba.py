@@ -3,8 +3,10 @@ landmark elimination over a fixed-capacity window.
 
 Port of `aslam_tpu/ops/lba.py`.  Per-edge 3x6 / 3x3 Jacobian blocks are
 computed batched and reduced into per-camera 6x6, per-landmark 3x3 and
-camera-landmark 6x3 blocks by `index_add_` (the reference's grouped path
-used one-hot matmuls, a stand-in for a scatter-add on the TPU); landmarks
+camera-landmark 6x3 blocks by an ordered scatter-add (`ops/index.py::
+index_add_ordered`: the same sum on every run, where `index_add_` on the card
+adds with atomics; the reference's grouped path used one-hot matmuls, a
+stand-in for a scatter-add on the TPU); landmarks
 are eliminated through S = Hcc - W Hll^-1 W^T and the reduced camera system
 is solved dense (`torch.linalg.solve_ex`, which does not read the device).
 Fixed cameras keep identity rows in S, so their update is exactly zero.
@@ -21,6 +23,7 @@ import torch
 
 from aslam_tpu_torch.config import BAConfig, CameraModel
 from aslam_tpu_torch.ops.ba import huber_weight, project_residual_jac
+from aslam_tpu_torch.ops.index import index_add_ordered
 from aslam_tpu_torch.ops.linalg import chol_inv
 from aslam_tpu_torch.ops.pose_graph import _edge_jacobians, edge_residual
 from aslam_tpu_torch.utils.se3 import T_inv, se3_exp
@@ -85,10 +88,10 @@ def chain_terms(cam_T: torch.Tensor, chain: ChainSpec):
     H = torch.zeros(C * C, 6, 6, dtype=cam_T.dtype, device=cam_T.device)
     for a, wJ, b, J in ((c_i, wJi, c_i, Ji), (c_j, wJj, c_j, Jj),
                         (c_i, wJi, c_j, Jj), (c_j, wJj, c_i, Ji)):
-        H.index_add_(0, a * C + b, torch.einsum("eri,erj->eij", wJ, J))
+        index_add_ordered(H, a * C + b, torch.einsum("eri,erj->eij", wJ, J))
     bvec = torch.zeros(C, 6, dtype=cam_T.dtype, device=cam_T.device)
-    bvec.index_add_(0, c_i, torch.einsum("eri,er->ei", wJi, r))
-    bvec.index_add_(0, c_j, torch.einsum("eri,er->ei", wJj, r))
+    index_add_ordered(bvec, c_i, torch.einsum("eri,er->ei", wJi, r))
+    index_add_ordered(bvec, c_j, torch.einsum("eri,er->ei", wJj, r))
     chi2 = torch.sum(w * torch.sum(r * r, dim=-1))
     return H.reshape(C, C, 6, 6), bvec, chi2
 
@@ -147,7 +150,7 @@ def edge_terms_grouped(prob: BAProblem, cam: CameraModel, cfg: BAConfig,
 def assemble_grouped(prob: BAProblem, cam: CameraModel, cfg: BAConfig,
                      robust: bool, group: int):
     """Normal equations of a camera-grouped problem: Hcc/bc are per-camera
-    sums, and W, Hll, bl are `index_add_` reductions of the edge blocks
+    sums, and W, Hll, bl are ordered scatter-adds of the edge blocks
     onto their landmarks.  -> (Hcc [C,6,6], bc [C,6], Hll [Lw,3,3],
     bl [Lw,3], W [C,Lw,6,3], chi2_total)."""
     C, M = prob.cam_T.shape[0], group
@@ -161,13 +164,16 @@ def assemble_grouped(prob: BAProblem, cam: CameraModel, cfg: BAConfig,
     lm = prob.e_lm.reshape(C, M).to(torch.int64)
     cam_lm = (torch.arange(C, device=lm.device)[:, None] * Lw + lm).reshape(-1)
     z = dict(dtype=w.dtype, device=w.device)
-    W = torch.zeros(C * Lw, 18, **z).index_add_(
-        0, cam_lm, torch.einsum("cmri,cmrj->cmij", wJc, Jp).reshape(-1, 18))
-    Hll = torch.zeros(Lw, 9, **z).index_add_(
-        0, lm.reshape(-1),
-        torch.einsum("cmri,cmrj->cmij", wJp, Jp).reshape(-1, 9))
-    bl = torch.zeros(Lw, 3, **z).index_add_(
-        0, lm.reshape(-1), torch.einsum("cmri,cmr->cmi", wJp, r).reshape(-1, 3))
+    act = active.reshape(-1)        # inactive edges weigh 0: left out
+    W = index_add_ordered(
+        torch.zeros(C * Lw, 18, **z), cam_lm,
+        torch.einsum("cmri,cmrj->cmij", wJc, Jp).reshape(-1, 18), act)
+    Hll = index_add_ordered(
+        torch.zeros(Lw, 9, **z), lm.reshape(-1),
+        torch.einsum("cmri,cmrj->cmij", wJp, Jp).reshape(-1, 9), act)
+    bl = index_add_ordered(
+        torch.zeros(Lw, 3, **z), lm.reshape(-1),
+        torch.einsum("cmri,cmr->cmi", wJp, r).reshape(-1, 3), act)
     chi2_total = torch.sum(torch.where(active, chi2, 0.0))
     return Hcc, bc, Hll.reshape(Lw, 3, 3), bl, W.reshape(C, Lw, 6, 3), \
         chi2_total
@@ -185,16 +191,16 @@ def assemble(prob: BAProblem, cam: CameraModel, cfg: BAConfig, robust: bool):
     wJc = w[:, None, None] * Jc
     wJp = w[:, None, None] * Jp
     z = dict(dtype=w.dtype, device=w.device)
-    Hcc = torch.zeros(C, 6, 6, **z).index_add_(
-        0, e_cam, torch.einsum("eri,erj->eij", wJc, Jc))
-    bc = torch.zeros(C, 6, **z).index_add_(
-        0, e_cam, torch.einsum("eri,er->ei", wJc, r))
-    Hll = torch.zeros(L, 3, 3, **z).index_add_(
-        0, e_lm, torch.einsum("eri,erj->eij", wJp, Jp))
-    bl = torch.zeros(L, 3, **z).index_add_(
-        0, e_lm, torch.einsum("eri,er->ei", wJp, r))
-    W = torch.zeros(C * L, 6, 3, **z).index_add_(
-        0, e_cam * L + e_lm, torch.einsum("eri,erj->eij", wJc, Jp))
+    Hcc = index_add_ordered(torch.zeros(C, 6, 6, **z), e_cam,
+                            torch.einsum("eri,erj->eij", wJc, Jc), active)
+    bc = index_add_ordered(torch.zeros(C, 6, **z), e_cam,
+                           torch.einsum("eri,er->ei", wJc, r), active)
+    Hll = index_add_ordered(torch.zeros(L, 3, 3, **z), e_lm,
+                            torch.einsum("eri,erj->eij", wJp, Jp), active)
+    bl = index_add_ordered(torch.zeros(L, 3, **z), e_lm,
+                           torch.einsum("eri,er->ei", wJp, r), active)
+    W = index_add_ordered(torch.zeros(C * L, 6, 3, **z), e_cam * L + e_lm,
+                          torch.einsum("eri,erj->eij", wJc, Jp), active)
     chi2_total = torch.sum(torch.where(active, chi2, 0.0))
     return Hcc, bc, Hll, bl, W.reshape(C, L, 6, 3), chi2_total
 

@@ -1,12 +1,13 @@
 """Correspondence search: 2-NN ratio matching, guided projection matching,
 duplicate resolution and candidate compaction.
 
-Port of `aslam_tpu/ops/matching.py` (`window_match`, which no module of
-the reference calls, is not ported yet).  The top-2 of `knn_ratio_match` goes through
-`ops/hamming_top2.py`: the CUDA kernel for tensors on the card, the plain
-version for CPU tensors.  `projection_match` needs the second index too and
-a per-pair window mask, so it stays the reference's distance matrix plus
-`_top2`, as in the JAX package.  `-1` marks "no match".
+Port of `aslam_tpu/ops/matching.py`.  For packed binary descriptors the
+top-2 of `knn_ratio_match` goes through `ops/hamming_top2.py`: the CUDA
+kernel for tensors on the card, the plain version for CPU tensors.  Float
+(SIFT-family) descriptors take the L2 distance matrix and `_top2`, as in the
+JAX package, and never the kernel.  `projection_match` and `window_match`
+need a per-pair window mask, so they stay the reference's distance matrix
+plus `_top2`.  `-1` marks "no match".
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from aslam_tpu_torch.ops.hamming import INVALID_DIST, masked_distance_matrix
+from aslam_tpu_torch.ops.hamming import (INVALID_DIST, is_packed,
+                                         masked_distance_matrix)
 from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
 from aslam_tpu_torch.ops.index import nonzero_static
 
@@ -49,7 +51,11 @@ def knn_ratio_match(
     max_dist: float = 256.0,
 ) -> Matches:
     """Lowe-ratio 2-NN matching, query rows -> target columns."""
-    d1, i1, d2 = hamming_top2(desc_q, valid_q, desc_t, valid_t)
+    if is_packed(desc_q):
+        d1, i1, d2 = hamming_top2(desc_q, valid_q, desc_t, valid_t)
+    else:
+        d1, i1, d2, _ = _top2(masked_distance_matrix(desc_q, valid_q, desc_t,
+                                                     valid_t))
     ok = valid_q & (d1 <= max_dist) & (d1 < ratio * d2) & (d1 < INVALID_DIST)
     return Matches(target_idx=torch.where(ok, i1, torch.full_like(i1, -1)),
                    distance=d1, valid=ok)
@@ -119,3 +125,28 @@ def projection_match(
     m = Matches(target_idx=torch.where(ok, i1, torch.full_like(i1, -1)),
                 distance=d1, valid=ok)
     return resolve_duplicates(m, N)
+
+
+def window_match(
+    desc_q: torch.Tensor,
+    valid_q: torch.Tensor,
+    uv_q: torch.Tensor,
+    desc_t: torch.Tensor,
+    valid_t: torch.Tensor,
+    uv_t: torch.Tensor,
+    radius: float,
+    max_dist: float,
+    ratio: float,
+) -> Matches:
+    """Spatially windowed 2-NN ratio match: each query's targets are those
+    within a `radius` box around its pixel; duplicates resolved."""
+    d = masked_distance_matrix(desc_q, valid_q, desc_t, valid_t)
+    dx = uv_q[:, 0:1] - uv_t[None, :, 0]
+    dy = uv_q[:, 1:2] - uv_t[None, :, 1]
+    d = torch.where((torch.abs(dx) < radius) & (torch.abs(dy) < radius), d,
+                    torch.full_like(d, INVALID_DIST))
+    d1, i1, d2, _ = _top2(d)
+    ok = valid_q & (d1 <= max_dist) & (d1 < ratio * d2)
+    m = Matches(target_idx=torch.where(ok, i1, torch.full_like(i1, -1)),
+                distance=d1, valid=ok)
+    return resolve_duplicates(m, desc_t.shape[0])

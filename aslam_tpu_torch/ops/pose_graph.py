@@ -5,8 +5,8 @@ T_i; constraints are relative measurements M_ij ~= T_i T_j^-1 with scalar
 weights.  The residual is r_e = log(M_e^-1 T_i T_j^-1) with analytic
 first-order Jacobians (`_edge_jacobians`, also used by the local BA's
 odometry-chain regularizer, `ops/lba.py::chain_terms`).  `optimize`
-assembles the damped normal equations with `index_add_` (duplicate indices
-accumulate) and solves them dense with `torch.linalg.solve_ex`, which does
+assembles the damped normal equations with an ordered scatter-add
+(`ops/index.py::index_add_ordered`; duplicate indices accumulate) and solves them dense with `torch.linalg.solve_ex`, which does
 not read the device; `optimize_cg` is the matrix-free Gauss-Newton with a
 block-Jacobi-preconditioned CG that loop closing takes above 256 keyframes.
 Every function broadcasts over leading batch dimensions, where the
@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from aslam_tpu_torch.ops.index import index_add_ordered
 from aslam_tpu_torch.ops.linalg import chol_inv
 from aslam_tpu_torch.utils.se3 import T_inv, hat, se3_exp, se3_log
 
@@ -79,6 +80,7 @@ def optimize(pg: PoseGraph, iters: int = 20, lam: float = 1e-6) -> PoseGraph:
     K = pg.T.shape[0]
     e_i, e_j = pg.e_i.to(torch.int64), pg.e_j.to(torch.int64)
     w = _edge_weights(pg)
+    live = w > 0                    # padded and invalid edges: left out
     free = pg.node_valid & ~pg.node_fixed
     free6 = free[:, None].expand(K, 6).reshape(-1)
     both = free6[:, None] & free6[None, :]
@@ -95,10 +97,11 @@ def optimize(pg: PoseGraph, iters: int = 20, lam: float = 1e-6) -> PoseGraph:
         H = torch.zeros(K * K, 6, 6, **z)
         for a, wJ, b, J in ((e_i, wJi, e_i, Ji), (e_j, wJj, e_j, Jj),
                             (e_i, wJi, e_j, Jj), (e_j, wJj, e_i, Ji)):
-            H.index_add_(0, a * K + b, torch.einsum("eri,erj->eij", wJ, J))
+            index_add_ordered(H, a * K + b,
+                              torch.einsum("eri,erj->eij", wJ, J), live)
         b = torch.zeros(K, 6, **z)
-        b.index_add_(0, e_i, torch.einsum("eri,er->ei", wJi, r))
-        b.index_add_(0, e_j, torch.einsum("eri,er->ei", wJj, r))
+        index_add_ordered(b, e_i, torch.einsum("eri,er->ei", wJi, r), live)
+        index_add_ordered(b, e_j, torch.einsum("eri,er->ei", wJj, r), live)
 
         Hm = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
         Hm = torch.where(both, Hm, 0.0)
@@ -122,12 +125,14 @@ def optimize_cg(pg: PoseGraph, iters: int = 15, cg_iters: int = 64,
     K = pg.T.shape[0]
     e_i, e_j = pg.e_i.to(torch.int64), pg.e_j.to(torch.int64)
     w = _edge_weights(pg)
+    live = w > 0                    # padded and invalid edges: left out
     free = (pg.node_valid & ~pg.node_fixed)[:, None]             # [K,1]
     z = dict(dtype=pg.T.dtype, device=pg.T.device)
 
     def scatter(vi, vj):
-        return torch.zeros(K, *vi.shape[1:], **z) \
-            .index_add_(0, e_i, vi).index_add_(0, e_j, vj)
+        out = index_add_ordered(torch.zeros(K, *vi.shape[1:], **z), e_i, vi,
+                                live)
+        return index_add_ordered(out, e_j, vj, live)
 
     T = pg.T
     for _ in range(iters):

@@ -86,4 +86,7 @@ def profiler_trace(logdir: str):
         yield prof
 
 
+# the reference's name for the same context manager
+xla_trace = profiler_trace
+
 GLOBAL = Metrics()

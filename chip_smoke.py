@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on a CUDA card: config-1 VO, config-2
-SLAM, config-3 (GICP escalation) VO and SLAM, loop closing, and the host
-shell (the CLI from a TUM directory on disk, both engines, sessions).
+SLAM, config-3 (GICP escalation) VO and SLAM, loop closing, the host shell
+(the CLI from a TUM directory on disk, both engines, sessions) and the other
+detector and descriptor families.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -31,8 +32,8 @@ Phases, one printed line each (or more, for phases 3 and 4):
      first 16.  Each run must give finite poses, one kernel launch per
      tracked frame and every keyframe mapped; the chunked run >= 3 keyframes,
      a local BA, and raw and rebuilt ATE below 3 cm and within 1.5x the JAX
-     package's; the stream run the chunked run's poses within 1 mm and its
-     keyframe count.
+     package's; a second chunked run the first's poses bit for bit; the
+     stream run the chunked run's poses within 1 mm and its keyframe count.
   5. config 3 at full width (10 GICP iterations): (a) the ADAPTIVE_RICP
      odometry over phase 3's 32 frames, frame pair by frame pair, through
      `ricp_step` (branch on the host) and `ricp_fused` (no host read), with
@@ -63,13 +64,29 @@ Phases, one printed line each (or more, for phases 3 and 4):
      finite row per frame, one kernel launch per tracked frame, ATE under
      the repo's gates and within 1.5x the JAX package's through the same
      path; (c) `DeviceSlam` over 32 frames, `save`, `resume` in a fresh
-     object, 32 more: the uninterrupted run's poses to 1e-5 and its keyframe
-     ids; then `new_sequence` on a frame of the first half, which must
+     object, 32 more: the uninterrupted run's poses bit for bit (every float
+     scatter-add is ordered, `ops/index.py::index_add_ordered`) and its
+     keyframe ids; then `new_sequence` on a frame of the first half, which must
      relocalize through the shipped vocabulary to within 2 cm / 0.02 rad of
      the truth, bind >= 10 landmarks and track the next frame; (d) the CLI
      with `--resume` from (b)'s checkpoint over the first 16 frames as a
      second sequence: anchored by relocalization, every frame tracked above
-     `min_matches_tracked`, within 3 cm of the truth in the first map's frame.
+     `min_matches_tracked`, within 3 cm of the truth in the first map's frame;
+  8. the detector and descriptor families at full width: (a) the six
+     responses and the five descriptors on the 8 level images of one frame
+     of phase 3, on the card and on the CPU from the same level images:
+     response masks equal but within 1e-3 of the threshold, values to rtol
+     1e-5; descriptor rows at the FAST keypoints of each level equal (SIFT to
+     1e-5) but where the two IC angles steer a sample onto another pixel,
+     and all equal on level 0; each family's ms per frame on the card;
+     (b) VO over phase 3's 32 frames with DOG+SIFT (the float L2 matcher),
+     HARRIS+FREAK, STAR+BRIEF and HESSIAN+LATCH: every frame tracked,
+     `hamming_top2` launched once per frame for a binary pair and never for
+     SIFT, ATE within 1.5x the JAX package's; make-frame ms per frame, with
+     FAST+ORB's beside them; (c) the CLI `--mode slam+gicp --engine device
+     --chunk 32 --detector GFTT --descriptor LATCH` over the walk's 64 PNGs,
+     held to phase 7's gates against the JAX package through the same path;
+     (d) a second run of (c), bit-identical to the first.
 Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
@@ -151,6 +168,21 @@ JAX_CLI_ATE_M = {"vo": 0.00831013053630803,
                  "host": (0.002102553912453388, 0.002304286046556286)}
 N_SECOND = 16           # frames of the second sequence
 RELOC_FRAME = 10        # the first-half frame that `new_sequence` re-enters on
+
+# ATE of the JAX package with the other detector and descriptor families:
+#   ... port_reference_ate.py families   (148 s)
+#     `VisualOdometry` over phase 3's 32 frames (uint8 / uint16) with each
+#     pair of phase 8(b); every frame tracked on the JAX side too
+JAX_FAMILY_ATE_M = {("DOG", "SIFT"): 0.002333074804979112,
+                    ("HARRIS", "FREAK"): 0.0020125456521010456,
+                    ("STAR", "BRIEF"): 0.0049640273807776275,
+                    ("HESSIAN", "LATCH"): 0.003344138499346909}
+#   ... port_reference_ate.py device-gftt-latch   (133 s; 6 inserted, 7 live)
+#     the `device` mode above with --detector GFTT --descriptor LATCH: the CLI
+#     of phase 8(c) (raw, rebuilt)
+JAX_CLI_FAMILY_ATE_M = (0.0012753416043231815, 0.001177245822065391)
+DETECTORS = ("FAST", "GFTT", "HARRIS", "DOG", "HESSIAN", "STAR")
+DESCRIPTORS = ("ORB", "BRIEF", "FREAK", "LATCH", "SIFT")
 
 
 def phase1_device_and_build():
@@ -461,6 +493,23 @@ def phase4_slam(dev, card, walk):
     _gate_slam_ate("chunked", ate, ate_r,
                    (JAX_SLAM_ATE_M, JAX_SLAM_ATE_REBUILT_M))
 
+    # a second run of the same 64 frames in this call: the same bits
+    again = _slam_run("chunked again", cfg, dev, imgs, deps, chunk=N_SLAM // 2)
+    same = (np.array_equal(again[1], chunked[1])
+            and np.array_equal(again[0].rebuilt_trajectory(),
+                               chunked[0].rebuilt_trajectory())
+            and torch.equal(again[0].state.m.kf_id, chunked[0].state.m.kf_id)
+            and again[3] == chunked[3])
+    if not same:
+        raise AssertionError(
+            f"a second chunked run differs: max |dT| "
+            f"{np.abs(again[1] - chunked[1]).max()}, counts {again[3]} vs "
+            f"{chunked[3]}")
+    print(f"phase 4: a second process_chunk 2x{N_SLAM // 2} run in this "
+          f"call: bit-identical poses, rebuilt poses and keyframe ids (max "
+          f"|dT| 0.0), {again[3]['launches']} kernel launches, "
+          f"{N_SLAM / again[4]:.2f} fps [{card}]", flush=True)
+
     stream = _slam_run("stream", cfg, dev, imgs[:N_STREAM], deps[:N_STREAM])
     _check_slam(f"process x{N_STREAM}", *stream, gt[:N_STREAM], card)
     d = np.abs(stream[1] - chunked[1][:N_STREAM]).max()
@@ -473,7 +522,8 @@ def phase4_slam(dev, card, walk):
           f"{d:.2e}, {kfs_s} KFs; peak device memory "
           f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated, "
           f"chunked run) [{card}]", flush=True)
-    return chunked[3]["launches"] + stream[3]["launches"]
+    return (chunked[3]["launches"] + again[3]["launches"]
+            + stream[3]["launches"])
 
 
 def _ricp_run(policy, cfg, dev, imgs_d, depths_d):
@@ -893,7 +943,7 @@ def phase7_host_shell(dev, card, walk):
         same_kfs = (torch.equal(second.state.m.kf_id, whole[0].state.m.kf_id)
                     and torch.equal(second.state.m.kf_valid,
                                     whole[0].state.m.kf_valid))
-        if not (d <= 1e-5 and d_rb <= 1e-5 and same_kfs
+        if not (d == 0.0 and d_rb == 0.0 and same_kfs
                 and hamming_top2.launches == n - 1
                 and second.timestamps == whole[0].timestamps):
             raise AssertionError(
@@ -905,7 +955,7 @@ def phase7_host_shell(dev, card, walk):
         print(f"phase 7: DeviceSlam {half} frames, save ({save_ms:.0f} ms, "
               f"{mib:.1f} MiB), resume in a fresh object ({resume_ms:.0f} ms), "
               f"{n - half} more == the uninterrupted {n}: max |dT| {d:.2e}, "
-              f"rebuilt {d_rb:.2e} (tolerance 1e-5), the same "
+              f"rebuilt {d_rb:.2e} (tolerance 0), the same "
               f"{int(second.state.n_kfs)} keyframe ids; "
               f"{hamming_top2.launches} kernel launches [{card}]", flush=True)
 
@@ -984,6 +1034,224 @@ def phase7_host_shell(dev, card, walk):
     return launches
 
 
+def _events_ms(fn, iters=5):
+    """Mean ms per call of `fn` on the card (CUDA events, after one call)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _with_family(cfg, det, des):
+    import dataclasses
+
+    return cfg.replace(extractor=dataclasses.replace(
+        cfg.extractor, detector=det, descriptor=des))
+
+
+def _phase8a_card_vs_cpu(dev, card, cfg, img_u8):
+    """Every response and descriptor family on the 8 level images of one
+    frame, on the card and on the CPU, from the same level images."""
+    from aslam_tpu_torch.ops import desc as desc_ops
+    from aslam_tpu_torch.ops import detectors, fast, pyramid, select
+
+    ec = cfg.extractor
+    levels = pyramid.build_pyramid(torch.from_numpy(img_u8).float(),
+                                   ec.n_levels, ec.scale_factor)
+    levels_d = [lv.to(dev) for lv in levels]
+    factors = torch.tensor([[0.7, 1.0, 1.3], [1.1, 0.9, 1.2], [0.8, 1.0, 1.0]])
+    # responses: masks equal except within 1e-3 of the threshold, values to
+    # rtol 1e-5
+    resp_line = []
+    for det in DETECTORS:
+        grid = factors * detectors.defaults(det)["threshold"]
+        err = flips = n_pos = 0
+        for lv, lv_d in zip(levels, levels_d):
+            th = fast.threshold_map_from_grid(grid, *lv.shape)
+            ref = detectors.response(det, lv, th)
+            out = detectors.response(det, lv_d, th.to(dev)).cpu()
+            differ = (ref > 0) != (out > 0)
+            raw = torch.maximum(ref, out)
+            if not bool((torch.abs(raw - th)[differ] <= 1e-3 * th[differ]).all()):
+                raise AssertionError(f"{det}: card and CPU masks differ away "
+                                     f"from the threshold")
+            both = (ref > 0) & (out > 0)
+            rel = (torch.abs(out - ref) / torch.clamp(ref.abs(), min=1e-6))[both]
+            if rel.numel() and float(rel.max()) > 1e-5:
+                raise AssertionError(f"{det}: card vs CPU rel err "
+                                     f"{float(rel.max())}")
+            err = max(err, float(rel.max()) if rel.numel() else 0.0)
+            flips += int(differ.sum())
+            n_pos += int(both.sum())
+        ths_d = [fast.threshold_map_from_grid(grid.to(dev), *lv_d.shape)
+                 for lv_d in levels_d]
+        ms = _events_ms(lambda: [detectors.response(det, lv_d, th_d)
+                                 for lv_d, th_d in zip(levels_d, ths_d)])
+        resp_line.append(f"{det} {n_pos} px, {flips} near-tie flips, rel err "
+                         f"{err:.1e}, {ms:.2f} ms")
+    print(f"phase 8: responses card vs CPU on 8 levels (masks equal but "
+          f"within 1e-3 of the threshold, values to rtol 1e-5; ms per frame "
+          f"on the card): " + "; ".join(resp_line) + f" [{card}]", flush=True)
+
+    # descriptors at the FAST keypoints of each level; a row may differ only
+    # where the two IC angles steer a sample onto another pixel
+    # (`desc.steered_index`), and none on level 0
+    kps = []
+    for l, lv in enumerate(levels):
+        resp = fast.nms_3x3(fast.fast_response(lv, 20.0))
+        xy, _, valid = select.grid_topk(resp, ec.cell_px, k_cell=ec.cell_topk,
+                                        n_out=max(int(ec.features_per_level[l]), 1))
+        kps.append(xy[valid])
+    kps_d = [k.to(dev) for k in kps]
+    blurs = [pyramid.gaussian_blur(lv) for lv in levels]
+    blurs_d = [pyramid.gaussian_blur(lv) for lv in levels_d]
+    desc_line = []
+    for des in DESCRIPTORS:
+        tied = n_rows = 0
+        err = 0.0
+        for l in range(len(levels)):
+            d_c, a_c = desc_ops.describe(des, blurs[l], kps[l])
+            d_g, a_g = desc_ops.describe(des, blurs_d[l], kps_d[l])
+            # each side's sample indices as that side computes them
+            tie = (desc_ops.steered_index(des, a_c)
+                   != desc_ops.steered_index(des, a_g).cpu()).any(1)
+            d_g = d_g.cpu()
+            if desc_ops.is_binary(des):
+                bad = (d_c != d_g).any(1)
+            else:
+                diff = torch.abs(d_c - d_g).amax(1)
+                bad = diff > 1e-5
+                err = max(err, float(diff[~tie].max()))
+            if bool((bad & ~tie).any()) or (l == 0 and bool(bad.any())):
+                rows = torch.nonzero(bad & ~tie)[:, 0][:5].tolist()
+                raise AssertionError(
+                    f"{des}, level {l}: {int(bad.sum())} rows differ between "
+                    f"the card and the CPU, {int((bad & ~tie).sum())} of them "
+                    f"not on an angle tie: rows {rows}, angles "
+                    f"{a_c[rows].tolist()} / {a_g.cpu()[rows].tolist()}, "
+                    f"max abs diff {float(torch.abs(d_c - d_g)[rows].max())}")
+            tied += int(bad.sum())
+            n_rows += len(kps[l])
+        ms = _events_ms(lambda: [desc_ops.describe(des, b, k)
+                                 for b, k in zip(blurs_d, kps_d)])
+        what = "bits" if desc_ops.is_binary(des) else f"max abs err {err:.1e}"
+        desc_line.append(f"{des} {n_rows} keypoints, {tied} rows on an angle "
+                         f"tie, {what}, {ms:.2f} ms")
+    print(f"phase 8: descriptors card vs CPU at the FAST keypoints of 8 levels "
+          f"(binary bits equal, SIFT to 1e-5; level 0 all equal; ms per frame "
+          f"on the card): " + "; ".join(desc_line) + f" [{card}]", flush=True)
+
+
+def phase8_families(dev, card, vo_frames, walk):
+    from aslam_tpu_torch import main as cli
+    from aslam_tpu_torch.models.extractor import init_grid_thresholds
+    from aslam_tpu_torch.models.frame import make_frame
+    from aslam_tpu_torch.models.vo import VisualOdometry
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.profile_slam import bench_config3
+    from aslam_tpu_torch.utils import dataset, trajectory
+
+    cfg_vo, imgs_u8, depths_u16, gt = vo_frames
+    # (a) each family, the card against the CPU
+    _phase8a_card_vs_cpu(dev, card, cfg_vo, imgs_u8[N_FRAMES // 2])
+
+    # (b) VO over phase 3's frames for four pairs
+    imgs_d = torch.from_numpy(imgs_u8).to(dev)
+    depths_d = torch.from_numpy(depths_u16).to(dev)
+    launches = 0
+    for det, des in (("FAST", "ORB"),) + tuple(JAX_FAMILY_ATE_M):
+        cfg = _with_family(cfg_vo, det, des)
+
+        def frames():
+            grid = init_grid_thresholds(cfg.extractor, dev)
+            for i in range(N_FRAMES):
+                _, grid = make_frame(imgs_d[i], depths_d[i], cfg, grid)
+
+        frame_ms = _events_ms(frames, iters=1) / N_FRAMES
+        if (det, des) == ("FAST", "ORB"):
+            print(f"phase 8: FAST+ORB (the default) make frame "
+                  f"{frame_ms:.1f} ms per frame [{card}]", flush=True)
+            continue
+        vo = VisualOdometry(cfg, dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        hamming_top2.launches = 0
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            vo.process(imgs_u8[i], depths_u16[i])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k = hamming_top2.launches
+        launches += k
+        poses = np.asarray(vo.poses)
+        ate = trajectory.ate_rmse(trajectory.camera_centers(poses),
+                                  trajectory.camera_centers(gt))
+        ref = JAX_FAMILY_ATE_M[(det, des)]
+        min_inl = min(st["n_inliers"] for st in vo.stats)
+        binary = des != "SIFT"
+        if not (np.isfinite(poses).all()
+                and min_inl >= cfg.ransac.min_inliers
+                and k == (N_FRAMES - 1 if binary else 0)
+                and ate <= 1.5 * ref):
+            raise AssertionError(
+                f"{det}+{des}: ATE {ate:.5f} m vs JAX {ref:.5f} m, min "
+                f"inliers {min_inl}, {k} hamming_top2 launches")
+        print(f"phase 8: VO {det}+{des}: {N_FRAMES} frames, every frame "
+              f"tracked (min matches {min(st['n_matches'] for st in vo.stats)}"
+              f", min inliers {min_inl}), ATE {ate * 100:.3f} cm (JAX "
+              f"{ref * 100:.3f} cm), {k} hamming_top2 launches, make frame "
+              f"{frame_ms:.1f} ms per frame, {N_FRAMES / seconds:.2f} fps "
+              f"[{card}]", flush=True)
+
+    # (c) and (d): the CLI with GFTT + LATCH on the walk's PNGs, twice
+    cfg = bench_config3(loop_closing=True)
+    cli.CAMERAS["bench"] = cfg.camera
+    imgs, deps, gt_w = walk
+    n = len(imgs)
+    gt_c = trajectory.camera_centers(gt_w)
+    ref = JAX_CLI_FAMILY_ATE_M
+    flags = ("--mode", "slam+gicp", "--engine", "device", "--chunk",
+             str(n // 2), "--detector", "GFTT", "--descriptor", "LATCH")
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="aslam_smoke_") as tmp:
+        root = os.path.join(tmp, "walk")
+        dataset.write_tum_sequence(root, imgs, deps, [0.033 * i for i in range(n)])
+        for run in ("first", "second"):
+            out = os.path.join(tmp, run)
+            metrics, slam, k, seconds, _ = _cli(root, out, cfg, *flags)
+            launches += k
+            ate = trajectory.ate_rmse(
+                _file_centers(run, out + "/CameraTrajectory.txt", n), gt_c)
+            ate_r = trajectory.ate_rmse(
+                trajectory.camera_centers(slam.rebuilt_trajectory()), gt_c)
+            _gate_slam_ate("main --detector GFTT --descriptor LATCH", ate,
+                           ate_r, ref)
+            n_kfs = metrics.counters["keyframes"]
+            if not (k == n - 1 and n_kfs >= 4
+                    and slam.kfs_mapped == slam.last_n_kfs):
+                raise AssertionError(f"GFTT+LATCH CLI: {k} launches, {n_kfs} "
+                                     f"keyframes, {slam.kfs_mapped} mapped")
+            runs.append((open(out + "/CameraTrajectory.txt").read(),
+                         slam.rebuilt_trajectory(), slam.state.m.kf_id.cpu()))
+            print(f"phase 8: main {' '.join(flags)} ({run} run): {n} frames, "
+                  f"ATE {ate * 100:.3f} cm, rebuilt {ate_r * 100:.3f} cm (JAX "
+                  f"{ref[0] * 100:.3f} / {ref[1] * 100:.3f} cm); {n_kfs} "
+                  f"keyframes; {_cli_line(metrics, k, seconds, n)} [{card}]",
+                  flush=True)
+    (f1, rb1, ids1), (f2, rb2, ids2) = runs
+    if not (f1 == f2 and np.array_equal(rb1, rb2) and torch.equal(ids1, ids2)):
+        raise AssertionError(f"GFTT+LATCH CLI: two runs differ, rebuilt max "
+                             f"|dT| {np.abs(rb1 - rb2).max()}")
+    print(f"phase 8: the two GFTT+LATCH CLI runs are bit-identical (the "
+          f"trajectory files byte for byte, rebuilt poses and keyframe ids) "
+          f"[{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -1007,6 +1275,9 @@ def main():
           f"[{card}]", flush=True)
     launches += phase7_host_shell(dev, card, walk)
     print(f"chip_smoke: phases 1-7 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    launches += phase8_families(dev, card, vo_frames, walk)
+    print(f"chip_smoke: phases 1-8 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
           flush=True)

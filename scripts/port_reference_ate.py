@@ -22,9 +22,14 @@ MODE is one of
               `process` per frame -> JAX_CLI_ATE_M["device"] (raw, rebuilt);
   host        `SlamSystem` (the CLI's --mode slam+gicp --engine host) with
               the same settings over the walk -> JAX_CLI_ATE_M["host"]
-              (raw, rebuilt).
-The first three take the frames as uint8 / uint16, the last three as the TUM
-loader hands them over (float32 gray, float32 metres).  All at full width
+              (raw, rebuilt);
+  families    `VisualOdometry` over the 32 frames of `ricp` for the detector
+              x descriptor pairs of `chip_smoke.py` phase 8(b) (DOG+SIFT,
+              HARRIS+FREAK, STAR+BRIEF, HESSIAN+LATCH) -> JAX_FAMILY_ATE_M;
+  device-gftt-latch  `device` with --detector GFTT --descriptor LATCH, the
+              CLI of phase 8(c) -> JAX_CLI_FAMILY_ATE_M (raw, rebuilt).
+The first three and `families` take the frames as uint8 / uint16, the rest
+as the TUM loader hands them over (float32 gray, float32 metres).  All at full width
 (640x480, 1024 keypoints), seed 0.  Each mode takes a few minutes on a CPU.
 """
 
@@ -81,6 +86,34 @@ def ricp():
               flush=True)
 
 
+FAMILY_PAIRS = (("DOG", "SIFT"), ("HARRIS", "FREAK"), ("STAR", "BRIEF"),
+                ("HESSIAN", "LATCH"))
+
+
+def with_family(cfg, det, des):
+    return cfg.replace(extractor=dataclasses.replace(
+        cfg.extractor, detector=det, descriptor=des))
+
+
+def families():
+    from aslam_tpu.models.vo import VisualOdometry
+
+    imgs, depths, poses, _ = synthetic.make_sequence(
+        n_frames=32, n_points=1500, cam=CAM, seed=5)
+    imgs, depths = sensor(imgs, depths)
+    for det, des in FAMILY_PAIRS:
+        t0 = time.time()
+        vo = VisualOdometry(with_family(SystemConfig(camera=CAM), det, des))
+        for i in range(len(imgs)):
+            vo.process(imgs[i], depths[i])
+        n_matches = min(s["n_matches"] for s in vo.stats)
+        print(f"{det}+{des}", repr(trajectory.ate_rmse(centers(vo.poses),
+                                                      centers(poses))),
+              "min matches", n_matches,
+              "min inliers", min(s["n_inliers"] for s in vo.stats),
+              f"{time.time() - t0:.0f} s", flush=True)
+
+
 def bench_config(loop, gicp):
     cfg = SystemConfig(camera=CAM, use_loop_closing=loop, use_gicp=gicp)
     return cfg.replace(
@@ -114,12 +147,15 @@ def loaded(imgs, deps):
 def slam(mode):
     from aslam_tpu.models.device_slam import DeviceSlam
 
-    loop = mode in ("slam-loop", "device")
-    cfg = bench_config(loop, mode in ("slam-gicp", "device"))
+    cli = mode in ("device", "device-gftt-latch")
+    loop = mode == "slam-loop" or cli
+    cfg = bench_config(loop, mode == "slam-gicp" or cli)
+    if mode == "device-gftt-latch":
+        cfg = with_family(cfg, "GFTT", "LATCH")
     imgs, deps, poses = bench_walk()
-    if mode == "device":
+    if cli:
         imgs, deps = loaded(imgs, deps)
-    sync = {"slam-loop": 32, "device": 8}.get(mode, 129)
+    sync = 8 if cli else {"slam-loop": 32}.get(mode, 129)
     dev = DeviceSlam(cfg, seed=0, sync_every=sync)
     for i in range(len(imgs)):
         dev.process(imgs[i], deps[i])
@@ -165,6 +201,7 @@ def host():
 if __name__ == "__main__":
     t0 = time.time()
     mode = sys.argv[1]
-    {"ricp": ricp, "vo-walk": vo_walk, "host": host}.get(
+    {"ricp": ricp, "vo-walk": vo_walk, "host": host,
+     "families": families}.get(
         mode, lambda: slam(mode))()
     print(f"{time.time() - t0:.0f} s")

@@ -2,8 +2,9 @@
 over a TUM-layout directory fabricated from the synthetic renderer (the
 recipe of tests/test_multisequence_cli.py, PNGs written by the port's own
 `write_tum_sequence`): every mode and engine at `small_config()` shapes
-(`main(..., base_config=)`), the output files, the flags that wait for
-modules not ported yet, and the refusal to run without a CUDA device unless
+(`main(..., base_config=)`), the other detector and descriptor families, the
+output files, the flags that wait for modules not ported yet and the
+misspelt family names, and the refusal to run without a CUDA device unless
 `--device cpu` is given.
 """
 
@@ -125,11 +126,27 @@ def test_cli_checkpoint_then_resume_as_second_sequence(tum, tmp_path):
     assert m2.counters["host_reads"] > 0 and m1.counters["keyframes"] >= 2
 
 
+@pytest.mark.parametrize("mode, det, des", [
+    ("vo", "GFTT", "BRIEF"),
+    ("vo", "DOG", "SIFT"),
+    ("slam", "HARRIS", "LATCH"),
+])
+def test_cli_runs_every_family(tum, tmp_path, mode, det, des):
+    """--detector / --descriptor select the other families (the float SIFT
+    one in --mode vo): a trajectory with one finite row per frame."""
+    m = _run(tum, tmp_path, "--mode", mode, "--detector", det,
+             "--descriptor", des)
+    ts, ate = _ate(tmp_path / "CameraTrajectory.txt", tum[2])
+    assert len(ts) == N and ate < 0.03
+    assert m.counters["frames"] == N
+
+
 @pytest.mark.parametrize("flags, names", [
-    (["--detector", "GFTT"], "ops/detectors.py"),
-    (["--descriptor", "BRIEF"], "ops/desc.py"),
-    (["--mode", "vo", "--descriptor", "SIFT"], "ops/desc.py"),
     (["--mode", "slam", "--descriptor", "SIFT"], "binary"),
+    (["--detector", "FASTT"], r"unknown detector 'FASTT'; have \['DOG', "
+                              r"'FAST', 'GFTT', 'HARRIS', 'HESSIAN', 'STAR'\]"),
+    (["--descriptor", "ORBB"], r"unknown descriptor 'ORBB'; have \['BRIEF', "
+                               r"'FREAK', 'LATCH', 'ORB', 'SIFT'\]"),
     (["--render-map"], "utils/viewer.py"),
     (["--viewer", "0"], "utils/webviewer.py"),
 ])
@@ -159,7 +176,9 @@ def test_cli_build_config_follows_the_reference():
 
     for argv in (["--mode", "vo"], ["--mode", "slam"], ["--mode", "slam+loop"],
                  ["--mode", "slam+gicp", "--camera", "fr3"],
-                 ["--pose-prior", "0", "--chain-prior", "123.5"]):
+                 ["--pose-prior", "0", "--chain-prior", "123.5"],
+                 ["--mode", "vo", "--detector", "SURF", "--descriptor", "SIFT"],
+                 ["--detector", "CENSURE", "--descriptor", "BRISK"]):
         argv = ["--dataset", "x", *argv]
         ns = cli._parser().parse_args(argv)
         assert dataclasses.asdict(cli.build_config(ns)) == \

@@ -344,12 +344,16 @@ def test_ricp_and_gicp_slam_on_card_match_cpu():
     ["--mode", "vo"],
     ["--mode", "slam+gicp", "--engine", "device", "--chunk", "4"],
     ["--mode", "slam+loop", "--engine", "host"],
-], ids=["vo", "device", "host"])
+    ["--mode", "vo", "--detector", "DOG", "--descriptor", "SIFT"],
+    ["--mode", "slam+gicp", "--engine", "device", "--chunk", "4",
+     "--detector", "GFTT", "--descriptor", "LATCH"],
+], ids=["vo", "device", "host", "vo-dog-sift", "device-gftt-latch"])
 def test_cli_on_card_matches_cli_on_cpu(tmp_path, flags):
     """`python -m aslam_tpu_torch.main` at small shape over a fabricated TUM
     directory: on the card by default, one kernel launch per tracked frame,
     the reference's output files, and camera centres within 1 cm of the same
-    run with `--device cpu` (other RANSAC draws: the generators differ)."""
+    run with `--device cpu` (other RANSAC draws: the generators differ).
+    The float SIFT family matches through the L2 matrix: no launch."""
     from aslam_tpu_torch import main as cli
     from aslam_tpu_torch.config import small_config
     from aslam_tpu_torch.utils import dataset, synthetic, trajectory
@@ -381,7 +385,7 @@ def test_cli_on_card_matches_cli_on_cpu(tmp_path, flags):
 
     card, launched = run("card")                 # the default device
     cpu, launched_cpu = run("cpu", "--device", "cpu")
-    assert launched == n - 1 and launched_cpu == 0
+    assert launched == (0 if "SIFT" in flags else n - 1) and launched_cpu == 0
     assert card.shape == (n, 3) and np.isfinite(card).all()
     np.testing.assert_allclose(card, cpu, atol=0.01)
     gt = trajectory.camera_centers(poses)
@@ -390,3 +394,44 @@ def test_cli_on_card_matches_cli_on_cpu(tmp_path, flags):
     for name in ("KeyFrameTrajectory.txt", "Histogram.csv"):
         assert (tmp_path / "card" / name).exists() == host
     assert (tmp_path / "card" / "metrics.json").exists()
+
+
+@pytest.mark.parametrize("family", ["GFTT", "HARRIS", "DOG", "HESSIAN", "STAR",
+                                    "BRIEF", "FREAK", "LATCH", "SIFT"])
+def test_family_on_card_matches_cpu(family):
+    """A detector response or a descriptor on one textured image, on the card
+    and on the CPU: equal masks (but within 1e-3 of the threshold) and values
+    to rtol 1e-5; descriptor rows equal (SIFT to 1e-5) but where the two IC
+    angles steer a sample onto another pixel."""
+    from aslam_tpu_torch.ops import desc, detectors, pyramid
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    img = np.kron(rng.uniform(0, 255, (30, 40)), np.ones((8, 8)))
+    img = torch.from_numpy(np.clip(img + rng.normal(0, 2, img.shape), 0, 255)
+                           .astype(np.float32))
+    if family in detectors.DETECTOR_DEFAULTS:
+        th = torch.full(img.shape, detectors.defaults(family)["threshold"])
+        ref = detectors.response(family, img, th)
+        out = detectors.response(family, img.to(dev), th.to(dev)).cpu()
+        differ = (ref > 0) != (out > 0)
+        raw = torch.maximum(ref, out)
+        assert bool((torch.abs(raw - th)[differ] <= 1e-3 * th[differ]).all())
+        both = (ref > 0) & (out > 0)
+        assert int(both.sum()) > 100
+        torch.testing.assert_close(out[both], ref[both], rtol=1e-5, atol=1e-5)
+        return
+    blur = pyramid.gaussian_blur(img)
+    xy = torch.from_numpy(np.stack([rng.uniform(16, 303, 500),
+                                    rng.uniform(16, 223, 500)], 1)
+                          .astype(np.float32))
+    d_c, a_c = desc.describe(family, blur, xy)
+    d_g, a_g = desc.describe(family, blur.to(dev), xy.to(dev))
+    tie = (desc.steered_index(family, a_c)
+           != desc.steered_index(family, a_g).cpu()).any(1)
+    d_g = d_g.cpu()
+    assert float(tie.float().mean()) < 0.02
+    if desc.is_binary(family):
+        assert torch.equal(d_c[~tie], d_g[~tie])
+    else:
+        torch.testing.assert_close(d_g[~tie], d_c[~tie], rtol=0, atol=1e-5)

@@ -184,3 +184,49 @@ def test_pose_graph_optimize_cg_matches_reference_and_dense():
     assert e_cg < 1.5 * e_dense + 1e-5
     np.testing.assert_allclose(P.n(cg_t.T), P.n(dense.T), atol=5e-3)
     np.testing.assert_array_equal(P.n(cg_t.T[0]), g["T"][0])    # the gauge
+
+
+@pytest.mark.parametrize("robust", [True, False])
+def test_ba_sweep_chunked_matches_dense(maps, robust):
+    """`ba_sweep_chunked` over 4 keyframe chunks against the port's dense
+    `ba_sweep` to 1e-5 (the reference's own bound), and against the
+    reference's chunked sweep."""
+    cfg, pcfg, mt, mj = maps
+    K = mt.kf_T_cw.shape[0]
+    dense, s1 = tgba.ba_sweep(mt, pcfg.camera, pcfg.ba, robust=robust)
+    chunked, s2 = tgba.ba_sweep_chunked(mt, pcfg.camera, pcfg.ba,
+                                        robust=robust, kf_chunk=K // 4)
+    np.testing.assert_allclose(P.n(chunked.kf_T_cw), P.n(dense.kf_T_cw),
+                               atol=1e-5)
+    np.testing.assert_allclose(P.n(chunked.lm_pos), P.n(dense.lm_pos),
+                               atol=1e-5)
+    assert int(s1.n_edges) == int(s2.n_edges)
+    np.testing.assert_allclose(float(s2.chi2), float(s1.chi2), rtol=1e-4)
+    m_j, s_j = jgba.ba_sweep_chunked(mj, cfg.camera, cfg.ba, robust=robust,
+                                     kf_chunk=K // 4)
+    _assert_stats(s2, s_j)
+    _assert_close(chunked, m_j, 1e-4, 1e-3)
+    with pytest.raises(ValueError):
+        tgba.ba_sweep_chunked(mt, pcfg.camera, pcfg.ba, kf_chunk=K // 4 + 1)
+
+
+def test_ordered_scatter_add_equals_index_add(maps):
+    """The ordered scatter-add the point sweep takes on the card
+    (`ops/index.py::_sorted_add`), run here on the CPU on the map's real
+    landmark blocks, against `index_add_`: equal to 1e-6 relative."""
+    from aslam_tpu_torch.ops.index import _sorted_add
+
+    cfg, pcfg, mt, mj = maps
+    r, _, Jp, w, _, active, lm = tgba._edge_terms(mt, pcfg.camera, pcfg.ba,
+                                                  True)
+    wJp = w[..., None, None] * Jp
+    blocks = torch.einsum("kmri,kmrj->kmij", wJp, Jp).reshape(-1, 9)
+    L = mt.lm_pos.shape[0]
+    ref = torch.zeros(L, 9).index_add_(0, lm.reshape(-1), blocks)
+    # the inactive edges (padding at landmark 0 among them) left out, as the
+    # sweeps pass them: the same sums, they weigh 0
+    out = _sorted_add(torch.zeros(L, 9), lm.reshape(-1), blocks,
+                      active.reshape(-1))
+    assert int((~active).sum()) > 1000
+    scale = P.n(ref).__abs__().max(axis=1, keepdims=True)
+    assert np.all(np.abs(P.n(out) - P.n(ref)) <= 1e-6 * scale + 1e-30)

@@ -349,3 +349,45 @@ def test_bench_inputs_hold_masks_and_tied_minima():
     assert 0 < int((~va).sum()) < 40 and 0 < int((~vb).sum()) < 120
     d1, _, d2 = hamming_top2_plain(a, va, b, vb)
     assert int(((d1 == d2) & va).sum()) >= 32
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "near"])
+def test_window_match_matches_reference(kind):
+    """`window_match` (spatially windowed ratio match + dedup), exact."""
+    a, va, b, vb = make_case(kind, n=96, m=120)
+    rng = np.random.default_rng(7)
+    uv_a = rng.uniform(0, 160, (len(a), 2)).astype(np.float32)
+    uv_b = rng.uniform(0, 160, (len(b), 2)).astype(np.float32)
+    h = len(a) // 2
+    uv_b[:h] = uv_a[:h] + rng.uniform(-4, 4, (h, 2))
+    # the first half of the targets: the queries with a few bits flipped
+    b[:h] = a[:h] ^ (rng.integers(0, 2**32, (h, 8), dtype=np.uint32)
+                     & rng.integers(0, 2**32, (h, 8), dtype=np.uint32)
+                     & rng.integers(0, 2**32, (h, 8), dtype=np.uint32)
+                     & rng.integers(0, 2**32, (h, 8), dtype=np.uint32))
+    args = dict(radius=12.0, max_dist=100.0, ratio=0.9)
+    mj = jmatch.window_match(jnp.asarray(a), jnp.asarray(va), jnp.asarray(uv_a),
+                             jnp.asarray(b), jnp.asarray(vb), jnp.asarray(uv_b),
+                             **args)
+    mt = tmatch.window_match(P.t(a), P.t(va), P.t(uv_a), P.t(b), P.t(vb),
+                             P.t(uv_b), **args)
+    np.testing.assert_array_equal(P.n(mt.target_idx), np.asarray(mj.target_idx))
+    np.testing.assert_array_equal(P.n(mt.valid), np.asarray(mj.valid))
+    np.testing.assert_array_equal(P.n(mt.distance), np.asarray(mj.distance))
+    assert P.n(mt.valid).any()
+
+
+def test_window_match_finds_twins_in_window():
+    rng = np.random.default_rng(0)
+    n = 12
+    d1 = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    uv1 = rng.uniform(0, 300, (n, 2)).astype(np.float32)
+    uv2 = uv1 + rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    uv2[4] = uv1[4] + 100.0                                # out of window
+    m = tmatch.window_match(P.t(d1), torch.ones(n, dtype=torch.bool), P.t(uv1),
+                            P.t(d1), torch.ones(n, dtype=torch.bool), P.t(uv2),
+                            radius=10.0, max_dist=64.0, ratio=0.9)
+    idx = P.n(m.target_idx)
+    assert idx[4] == -1
+    good = [i for i in range(n) if i != 4]
+    assert (idx[good] == np.asarray(good)).mean() > 0.8

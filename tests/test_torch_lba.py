@@ -210,3 +210,33 @@ def test_local_ba_matches_reference(grouped, chain):
     assert int(out_stats.n_edges) == int(ref_stats.n_edges) or near.any()
     np.testing.assert_allclose(float(out_stats.chi2), float(ref_stats.chi2),
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("width,targets", [((6, 6), 8), ((18,), 8 * 128),
+                                           ((9,), 128), ((3,), 128)])
+def test_ordered_scatter_add_equals_index_add(width, targets):
+    """The ordered scatter-add the local BA's assembly takes on the card
+    (`ops/index.py::_sorted_add`), run here on the CPU, against the CPU's
+    `index_add_`, at the grouped layout's shapes (6 cameras x 96 edges):
+    equal to 1e-6 relative."""
+    from aslam_tpu_torch.ops.index import _sorted_add, index_add_ordered
+
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, targets, (6 * 96,), generator=g)
+    src = torch.randn((6 * 96,) + width, generator=g) * 1e3
+    ref = torch.zeros((targets,) + width).index_add_(0, idx, src)
+    out = _sorted_add(torch.zeros((targets,) + width), idx, src)
+    np.testing.assert_allclose(P.n(out), P.n(ref), rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))
+    # on the CPU the helper is index_add_ itself
+    assert torch.equal(index_add_ordered(torch.zeros((targets,) + width), idx,
+                                         src), ref)
+    # masked rows, all pointing at row 0 as padded edges do, are left out
+    valid = torch.rand(len(idx), generator=g) > 0.5
+    idx_m = torch.where(valid, idx, 0)
+    ref = torch.zeros((targets,) + width).index_add_(0, idx[valid], src[valid])
+    out = _sorted_add(torch.zeros((targets,) + width), idx_m, src, valid)
+    np.testing.assert_allclose(P.n(out), P.n(ref), rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))
+    assert torch.equal(index_add_ordered(torch.zeros((targets,) + width),
+                                         idx_m, src, valid), ref)

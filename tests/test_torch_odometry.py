@@ -337,3 +337,47 @@ def test_ricp_falls_back_to_identity_when_nothing_aligns():
         assert int(res.n_inliers) < pcfg.icp.escalate_min_inliers
     assert todo.ricp_step.escalated - esc0 == 1
     assert todo.ricp_step.converged - conv0 == 0
+
+
+@pytest.mark.parametrize("det", ["DOG", "GFTT"])
+def test_chained_vo_with_float_sift_matches_reference(det):
+    """8 frames of VO with a non-FAST detector and the float SIFT family
+    (matched through the L2 path, not `hamming_top2`): each side extracts its
+    own frames and chains `rba_step`; the port is fed the reference's RANSAC
+    draws.  Poses to 1e-4; match counts equal up to the pyramid's near ties
+    on levels > 0 (one match in a hundred)."""
+    cfg = small_config()
+    cfg = cfg.replace(extractor=dataclasses.replace(
+        cfg.extractor, detector=det, descriptor="SIFT"))
+    pcfg = P.port_config(cfg)
+    imgs, depths, poses_gt = _frames_u8(8, 3, cfg.camera)
+    h, w = imgs.shape[1:]
+    key = jax.random.PRNGKey(0)
+    grid_j = jnp.full((3, 3), 2.0, jnp.float32)
+    jf, grid_j = jframe._make_frame_impl(jnp.asarray(imgs[0]),
+                                         jnp.asarray(depths[0]), grid_j, cfg,
+                                         h, w)
+    tf, grid_t = make_frame(P.t(imgs[0]), P.t(depths[0]), pcfg,
+                            init_grid_thresholds(pcfg.extractor, "cpu"))
+    assert tf.feat.desc.dtype == torch.float32
+    poses_j, poses_t = [np.eye(4)], [np.eye(4)]
+    for i in range(1, len(imgs)):
+        key, sub = jax.random.split(key)
+        jf2, grid_j = jframe._make_frame_impl(jnp.asarray(imgs[i]),
+                                              jnp.asarray(depths[i]), grid_j,
+                                              cfg, h, w)
+        draws = P.ref_draws(jf, jf2, sub, cfg)
+        res_j = jodo.rba_step(jf, jf2, sub, cfg)
+        jf = jf2._replace(T_cw=res_j.T_cw2)
+        tf2, grid_t = make_frame(P.t(imgs[i]), P.t(depths[i]), pcfg, grid_t)
+        res_t = todo.rba_step(tf, tf2, None, pcfg, draws=P.t(draws))
+        tf = tf2._replace(T_cw=res_t.T_cw2)
+        np.testing.assert_allclose(P.n(grid_t), np.asarray(grid_j), rtol=1e-6)
+        n_j = int(res_j.n_matches)
+        assert n_j >= 30 and abs(int(res_t.n_matches) - n_j) <= n_j // 100
+        poses_j.append(np.asarray(jf.T_cw))
+        poses_t.append(P.n(tf.T_cw))
+    np.testing.assert_allclose(np.stack(poses_t), np.stack(poses_j), atol=1e-4)
+    gt = trajectory.camera_centers(poses_gt)
+    assert trajectory.ate_rmse(trajectory.camera_centers(np.stack(poses_t)),
+                               gt) < 0.01
