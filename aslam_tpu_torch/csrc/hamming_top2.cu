@@ -68,6 +68,12 @@
 //  * Occupancy.  The 16 warps of a block split the targets, 16 at a time, so
 //    N = 1024 gives 128 blocks of 16 warps on 128 of the 132 SMs.  A larger N
 //    only adds blocks.
+//  * Batch.  Batched VO (models/batch_vo.py) matches B independent frame
+//    pairs per step, [B,N,8] x [B,M,8] -> [B,3,N], in one launch: the grid's
+//    y is the lane, and each block offsets its five pointers by it.  A
+//    lane's strides are multiples of 32 bytes, so the bulk copies keep their
+//    16-byte alignment; the mbarrier ring and the shared memory are per
+//    block and do not change.  B = 1 is the unbatched call.
 
 #include <algorithm>
 #include <cstdint>
@@ -194,6 +200,14 @@ hamming_top2_kernel(const int32_t* __restrict__ desc_a,
                     const int32_t* __restrict__ desc_b,
                     const uint8_t* __restrict__ valid_b,
                     int n, int m, int32_t* __restrict__ out) {
+  // lane blockIdx.y of a batch: its own rows of every operand
+  const size_t problem = blockIdx.y;
+  desc_a += problem * n * kWords;
+  valid_a += problem * n;
+  desc_b += problem * m * kWords;
+  valid_b += problem * m;
+  out += problem * 3 * n;
+
   extern __shared__ __align__(128) unsigned char slots[];
   __shared__ __align__(8) uint64_t full[kSlots];
   __shared__ __align__(8) uint64_t empty[kSlots];
@@ -369,28 +383,34 @@ cudaError_t configure() {
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  All pointers are device pointers
-// (desc_a and desc_b 16-byte aligned); `out` is int32 [3, n]: row 0 the bits
-// of d1 (float32), row 1 i1, row 2 the bits of d2.  The launch goes on
+// (desc_a and desc_b 16-byte aligned).  A launch takes b problems: desc_a
+// [b, n, 8], valid_a [b, n], desc_b [b, m, 8], valid_b [b, m], and `out`
+// int32 [b, 3, n]: per problem row 0 the bits of d1 (float32), row 1 i1, row
+// 2 the bits of d2 (b = 1: one [n] x [m] problem).  The launch goes on
 // `stream` of the current device and does not synchronise.  Returns the
 // cudaError_t of the set-up or the launch (0 = success).
 extern "C" int hamming_top2_launch(const int32_t* desc_a, const uint8_t* valid_a,
                                    const int32_t* desc_b, const uint8_t* valid_b,
-                                   int n, int m, int32_t* out,
+                                   int b, int n, int m, int32_t* out,
                                    cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (m < 0 || m > (1 << kKeyShift)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || b <= 0) return 0;
+  if (m < 0 || m > (1 << kKeyShift) || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  hamming_top2_kernel<<<grid_for(n), kThreads, smem_bytes(m), stream>>>(
+  hamming_top2_kernel<<<dim3(grid_for(n), b), kThreads, smem_bytes(m), stream>>>(
       desc_a, valid_a, desc_b, valid_b, n, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hamming_top2_empty_launch(int n, int m, cudaStream_t stream) {
-  if (n <= 0) return 0;
+extern "C" int hamming_top2_empty_launch(int b, int n, int m, cudaStream_t stream) {
+  if (n <= 0 || b <= 0) return 0;
+  if (b > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  hamming_top2_empty_kernel<<<grid_for(n), kThreads, smem_bytes(m), stream>>>();
+  hamming_top2_empty_kernel<<<dim3(grid_for(n), b), kThreads, smem_bytes(m),
+                              stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,10 @@ Usage:
       --camera fr1 --mode slam --out-dir results/
 
 Writes CameraTrajectory.txt (TUM format) and metrics.json; the host engine
-also KeyFrameTrajectory.txt and Histogram.csv.
+also KeyFrameTrajectory.txt and Histogram.csv.  In the SLAM modes, on either
+engine, `--render-map` writes map.png (`utils/viewer.py`) and `--viewer PORT`
+serves the live map (`utils/webviewer.py`), published every
+`--viewer-every` frames and once more at the end.
 """
 
 from __future__ import annotations
@@ -34,13 +37,6 @@ CAMERAS = {
     "fr3": cfg_mod.TUM_FR3,
     "icl": cfg_mod.ICL_NUIM,
 }
-
-# flags whose modules are not ported yet, with the module each needs
-_WAITING = {
-    "--render-map": "aslam_tpu_torch/utils/viewer.py (render_map)",
-    "--viewer": "aslam_tpu_torch/utils/webviewer.py (WebViewer)",
-}
-
 
 def build_config(args, base: SystemConfig | None = None) -> SystemConfig:
     """The configuration the flags select, over `base` (default
@@ -114,8 +110,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--export-cloud", action="store_true",
                     help="fuse depth maps into <out-dir>/map.ply")
     ap.add_argument("--viewer", type=int, default=-1, metavar="PORT",
-                    help="serve a live web map viewer on this port")
-    ap.add_argument("--viewer-every", type=int, default=10)
+                    help="serve a live web map viewer on this port "
+                         "(0 = any free port)")
+    ap.add_argument("--viewer-every", type=int, default=10,
+                    help="publish a snapshot every N frames (one read of "
+                         "the map per publish)")
     return ap
 
 
@@ -123,12 +122,14 @@ def run(argv=None, base_config: SystemConfig | None = None):
     """Run the CLI -> (Metrics, the engine it drove).  `base_config` is the
     configuration the flags modify (capacities, BA window, cadences), for
     callers that drive the CLI in process; the command line itself starts
-    from `SystemConfig()`."""
+    from `SystemConfig()`.  With `--viewer` the server goes on serving the
+    final snapshot after the run, as the returned engine's `viewer`
+    (`stop()` it; None without the flag), until the process ends."""
     args = _parser().parse_args(argv)
-    if args.render_map or args.viewer >= 0:
-        flag = "--render-map" if args.render_map else "--viewer"
-        raise SystemExit(f"{flag} needs {_WAITING[flag]}, which is not "
-                         "ported yet")
+    if args.mode == "vo" and (args.render_map or args.viewer >= 0):
+        raise SystemExit("--render-map (utils/viewer.py) and --viewer "
+                         "(utils/webviewer.py) draw the map: use a SLAM mode "
+                         "(slam, slam+loop, slam+gicp), not vo")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -147,6 +148,21 @@ def run(argv=None, base_config: SystemConfig | None = None):
     traj_path = os.path.join(args.out_dir, "CameraTrajectory.txt")
     reads0 = read_host.count
     t0 = time.time()
+    viewer = None
+    if args.viewer >= 0:
+        from aslam_tpu_torch.utils.webviewer import WebViewer
+
+        viewer = WebViewer(port=args.viewer)
+        print(f"live viewer: {viewer.url}", flush=True)
+    every = max(args.viewer_every, 1)
+
+    def publish(slam, frame, traj=None):
+        from aslam_tpu_torch.utils import viewer as draw
+
+        if traj is None:
+            traj = draw.engine_trajectory(slam)
+        viewer.update(draw.engine_map(slam), traj=traj,
+                      stats=dict(draw.hud_counters(slam), frame=frame))
 
     def frames(lo, hi):
         for i in range(lo, hi):
@@ -182,8 +198,12 @@ def run(argv=None, base_config: SystemConfig | None = None):
                     with metrics.timer("track", sync=device):
                         slam.process(img, depth, t)
             metrics.count("frames", hi - lo)
+            if viewer is not None and (hi - 1) // every > (lo - 1) // every:
+                publish(slam, hi - 1)
             lo = hi
         traj, _ = slam.finish()
+        if viewer is not None:
+            publish(slam, n - 1, traj)
         save_tum_trajectory(traj_path, np.asarray(slam.timestamps), traj)
         metrics.count("keyframes", slam.state.kf_counter)
         print(f"{n} frames, {slam.kfs_mapped} keyframes, "
@@ -199,9 +219,13 @@ def run(argv=None, base_config: SystemConfig | None = None):
             with metrics.timer("track", sync=device):
                 slam.process(img, depth, t)
             metrics.count("frames")
+            if viewer is not None and i % every == 0:
+                publish(slam, i)
             if i % 50 == 0:
                 mean_ms = 1e3 * (time.time() - t0) / max(i, 1)
                 print(f"[{i}/{n}] mean {mean_ms:.1f} ms/frame", flush=True)
+        if viewer is not None and n:
+            publish(slam, n - 1)
         metrics.count("keyframes", len(slam.tracking.new_kf_slots))
         metrics.count("host_reads_tracking", read_host.count - reads0)
         slam.save_trajectory(traj_path)
@@ -217,11 +241,16 @@ def run(argv=None, base_config: SystemConfig | None = None):
             n_pts = export_dense_map(
                 slam, seq, os.path.join(args.out_dir, "map.ply"))
             print(f"dense map: {n_pts} points -> map.ply")
+    if args.render_map:
+        from aslam_tpu_torch.utils.viewer import render_map
+
+        render_map(slam, os.path.join(args.out_dir, "map.png"))
 
     seq.close()
     metrics.count("host_reads", read_host.count - reads0)
     metrics.dump(os.path.join(args.out_dir, "metrics.json"))
     print(json.dumps(metrics.summary()["timers"], indent=2))
+    slam.viewer = viewer
     return metrics, slam
 
 

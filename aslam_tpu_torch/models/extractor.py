@@ -17,6 +17,12 @@ controller on or off.  Per frame:
      coordinates in level-0 pixels
   6. the grid update from the per-cell corner counts of all levels, clamped
      to the family's [th_min, th_max] (`detector_params`).
+
+`_extract_impl` takes one image [H,W] with its [g,g] grid, or a batch
+[B,H,W] with [B,g,g] grids (batched VO, `models/batch_vo.py`): every step
+above broadcasts over the leading axis, so a batch of any family runs the
+launches of one image, and one image runs what it ran before the batch
+axis existed.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from aslam_tpu_torch.config import ExtractorConfig
 from aslam_tpu_torch.ops import desc as desc_ops
 from aslam_tpu_torch.ops import detectors, fast, orb, pyramid, select
+from aslam_tpu_torch.ops.index import take_rows
 
 
 class Features(NamedTuple):
@@ -75,8 +82,10 @@ def init_adaptive_state(cfg: ExtractorConfig,
 
 def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
                   cfg: ExtractorConfig):
-    """img [H,W] float32 -> (Features, new grid thresholds [g,g])."""
+    """img [..., H, W] float32, grid [..., g, g] -> (Features with the same
+    leading dims, new grid thresholds [..., g, g])."""
     dev = img.device
+    lead = img.shape[:-2]
     levels = pyramid.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     quotas = cfg.features_per_level
     scales = cfg.scale_factors
@@ -97,7 +106,7 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
     if cfg.adaptive and cfg.adaptive_iters > 1:
         # intra-frame controller passes, counting on level 0 only
         base = levels[0]
-        h0, w0 = base.shape
+        h0, w0 = base.shape[-2:]
         for _ in range(cfg.adaptive_iters - 1):
             th0 = fast.threshold_map_from_grid(grid_thresholds, h0, w0)
             counts = fast.counts_per_grid_cell(
@@ -106,10 +115,10 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
 
     all_xy, all_resp, all_valid, all_oct, all_desc, all_angle = \
         [], [], [], [], [], []
-    total_counts = torch.zeros((g, g), dtype=torch.int32, device=dev)
+    total_counts = torch.zeros(lead + (g, g), dtype=torch.int32, device=dev)
     b = orb.PATCH_RADIUS + 1
     for l, img_l in enumerate(levels):
-        h, w = img_l.shape
+        h, w = img_l.shape[-2:]
         th_map = fast.threshold_map_from_grid(grid_thresholds, h, w)
         resp_raw = response(img_l, th_map)
         if not cfg.adaptive:
@@ -145,26 +154,26 @@ def _extract_impl(img: torch.Tensor, grid_thresholds: torch.Tensor,
         all_xy.append(xy_l * scales[l])       # to level-0 coords
         all_resp.append(resp_l)
         all_valid.append(valid_l)
-        all_oct.append(torch.full((xy_l.shape[0],), l, dtype=torch.int32,
+        all_oct.append(torch.full(xy_l.shape[:-1], l, dtype=torch.int32,
                                   device=dev))
         all_desc.append(desc_l)
         all_angle.append(angle_l)
 
-    xy = torch.cat(all_xy)
-    resp = torch.cat(all_resp)
-    valid = torch.cat(all_valid)
-    octv = torch.cat(all_oct)
-    desc = torch.cat(all_desc)
-    angle = torch.cat(all_angle)
+    xy = torch.cat(all_xy, -2)
+    resp = torch.cat(all_resp, -1)
+    valid = torch.cat(all_valid, -1)
+    octv = torch.cat(all_oct, -1)
+    desc = torch.cat(all_desc, -2)
+    angle = torch.cat(all_angle, -1)
 
     M = cfg.max_keypoints
-    n_cand = xy.shape[0]
+    n_cand = xy.shape[-2]
     if n_cand >= M:
         # keep the M best by (valid, response)
         _, sel = select.topk_stable(
             torch.where(valid, resp, torch.full_like(resp, -1.0)), M)
         xy, resp, angle, octv, desc, valid = (
-            xy[sel], resp[sel], angle[sel], octv[sel], desc[sel], valid[sel])
+            take_rows(x, sel) for x in (xy, resp, angle, octv, desc, valid))
     else:
         pad = M - n_cand
         xy = torch.nn.functional.pad(xy, (0, 0, 0, pad))

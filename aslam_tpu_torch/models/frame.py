@@ -3,6 +3,10 @@
 Port of `aslam_tpu/models/frame.py`: extract features, sample depth at the
 keypoints (refined by a gated 3x3 depth-plane fit), undistort, backproject
 to camera-frame 3D and compute the pseudo-stereo coordinate u - bf/z.
+
+`_make_frame_impl` also takes a batch of frames with the batch first
+(`models/batch_vo.py::batch_frame`): every field of the FrameData then has
+that leading axis, and one frame runs what it ran before the axis existed.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 from aslam_tpu_torch.config import SystemConfig
 from aslam_tpu_torch.models.extractor import Features, _extract_impl
+from aslam_tpu_torch.ops.index import take_pixels
 from aslam_tpu_torch.ops.linalg import chol_solve
 from aslam_tpu_torch.utils import camera
 
@@ -26,14 +31,17 @@ class FrameData(NamedTuple):
     has_depth: torch.Tensor   # [M] bool
     T_cw: torch.Tensor        # [4,4] world-to-camera pose
     depth_map: torch.Tensor   # [H,W] full depth image (m)
+    # (batched: a leading [B] on every field)
 
 
 def _make_frame_impl(img: torch.Tensor, depth_map: torch.Tensor,
                      grid_thresholds: torch.Tensor, cfg: SystemConfig):
-    """img [H,W] (uint8 or float32 gray), depth_map [H,W] (uint16 counts or
-    float32 metres), all on one device -> (FrameData, new grid thresholds)."""
+    """img [..., H, W] (uint8 or float32 gray), depth_map [..., H, W] (uint16
+    counts or float32 metres), grid_thresholds [..., g, g], all on one
+    device -> (FrameData, new grid thresholds)."""
     cam = cfg.camera
-    height, width = img.shape
+    lead = img.shape[:-2]
+    height, width = img.shape[-2:]
     # raw sensor dtypes are converted on the device
     if img.dtype != torch.float32:
         img = img.to(torch.float32)
@@ -49,9 +57,10 @@ def _make_frame_impl(img: torch.Tensor, depth_map: torch.Tensor,
     feat, new_grid = _extract_impl(img, grid_thresholds, cfg.extractor)
 
     # depth at the raw (distorted) keypoint pixel
-    xi = torch.clamp(torch.round(feat.xy[:, 0]).to(torch.int64), 0, width - 1)
-    yi = torch.clamp(torch.round(feat.xy[:, 1]).to(torch.int64), 0, height - 1)
-    z = depth_map[yi, xi]
+    xi = torch.clamp(torch.round(feat.xy[..., 0]).to(torch.int64), 0, width - 1)
+    yi = torch.clamp(torch.round(feat.xy[..., 1]).to(torch.int64), 0,
+                     height - 1)
+    z = take_pixels(depth_map, yi, xi)
     has_depth = feat.valid & (z > 0.05) & torch.isfinite(z)
     z = torch.where(has_depth, z, torch.zeros_like(z))
 
@@ -74,12 +83,12 @@ def _make_frame_impl(img: torch.Tensor, depth_map: torch.Tensor,
             for dx in range(-r, r + 1):
                 yy = torch.clamp(yi + dy, 0, height - 1)
                 xx = torch.clamp(xi + dx, 0, width - 1)
-                zn = depth_map[yy, xx]
+                zn = take_pixels(depth_map, yy, xx)
                 ok = (zn > 0.05) & torch.isfinite(zn) \
                     & (torch.abs(zn - z) <= gate)
                 w = ok.to(z.dtype)
-                du = xx.to(z.dtype) - feat.xy[:, 0]
-                dv = yy.to(z.dtype) - feat.xy[:, 1]
+                du = xx.to(z.dtype) - feat.xy[..., 0]
+                dv = yy.to(z.dtype) - feat.xy[..., 1]
                 S = S + w
                 Su = Su + w * du
                 Sv = Sv + w * dv
@@ -108,10 +117,11 @@ def _make_frame_impl(img: torch.Tensor, depth_map: torch.Tensor,
         feat=feat,
         xy_und=xy_und,
         p3d=camera.unproject(cam, xy_und, z),
-        ur=camera.u_right(cam, xy_und[:, 0], z),
+        ur=camera.u_right(cam, xy_und[..., 0], z),
         depth=z,
         has_depth=has_depth,
-        T_cw=torch.eye(4, dtype=torch.float32, device=img.device),
+        T_cw=torch.eye(4, dtype=torch.float32, device=img.device).expand(
+            lead + (4, 4)).contiguous(),
         depth_map=depth_map,
     )
     return frame, new_grid

@@ -16,6 +16,11 @@ unless rmse*10 >= 20 (then from the identity), and runs no motion-only BA:
 
 Every other step stays on the tensors' device.  `lax.scan` over frames
 becomes a Python loop.
+
+`ransac_step`, `rba_step` and `track_frame` also take batched frames (a
+leading [B] on every field, `models/batch_vo.py`): B frame pairs per call,
+with about the launches of one.  The ADAPTIVE_RICP policies stay one pair
+per call.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from aslam_tpu_torch.config import SystemConfig
 from aslam_tpu_torch.device import read_host
 from aslam_tpu_torch.models.frame import FrameData, _make_frame_impl
 from aslam_tpu_torch.ops import ba, icp, matching, ransac
+from aslam_tpu_torch.ops.index import take_rows
 from aslam_tpu_torch.utils.se3 import T_inv, transform_points
 
 
@@ -51,11 +57,11 @@ def ransac_step(f1: FrameData, f2: FrameData,
     m = matching.knn_ratio_match(
         f1.feat.desc, f1.feat.valid, f2.feat.desc, f2.feat.valid,
         ratio=cfg.matcher.ratio_frame, max_dist=float(cfg.matcher.th_high))
-    m = matching.resolve_duplicates(m, f2.feat.desc.shape[0])
+    m = matching.resolve_duplicates(m, f2.feat.desc.shape[-2])
     tgt = torch.clamp(m.target_idx, min=0).long()
-    pair_valid = m.valid & f1.has_depth & f2.has_depth[tgt]
-    res = ransac.ransac_align(f1.p3d, f2.p3d[tgt], pair_valid, generator,
-                              cfg.ransac, cfg.camera, draws=draws)
+    pair_valid = m.valid & f1.has_depth & take_rows(f2.has_depth, tgt)
+    res = ransac.ransac_align(f1.p3d, take_rows(f2.p3d, tgt), pair_valid,
+                              generator, cfg.ransac, cfg.camera, draws=draws)
     return m, pair_valid, res
 
 
@@ -155,17 +161,18 @@ def rba_step(f1: FrameData, f2: FrameData, generator: torch.Generator | None,
     # motion-only BA on the RANSAC inliers: world points from frame-1 depth,
     # observations from the frame-2 keypoints
     ba_res = ba.pose_only_ba(
-        T_cw2_init, transform_points(T_inv(f1.T_cw), p1), f2.xy_und[tgt],
-        f2.ur[tgt], f2.depth[tgt], res.inliers & pair_valid, cam, cfg.ba)
+        T_cw2_init, transform_points(T_inv(f1.T_cw), p1),
+        take_rows(f2.xy_und, tgt), take_rows(f2.ur, tgt),
+        take_rows(f2.depth, tgt), res.inliers & pair_valid, cam, cfg.ba)
     use_ba = ba_res.n_inliers >= cfg.ransac.min_inliers
-    T_cw2 = torch.where(use_ba, ba_res.T_cw, T_cw2_init)
+    T_cw2 = torch.where(use_ba[..., None, None], ba_res.T_cw, T_cw2_init)
 
     return OdometryResult(
         T_cw2=T_cw2,
         T12=T_cw2 @ T_inv(f1.T_cw),
         match_idx=m.target_idx,
         inliers=res.inliers,
-        n_matches=torch.sum(m.valid.to(torch.int32)),
+        n_matches=torch.sum(m.valid.to(torch.int32), -1),
         n_inliers=res.n_inliers,
         rmse=res.rmse,
         ba_inliers=ba_res.n_inliers,

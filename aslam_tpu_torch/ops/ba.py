@@ -7,6 +7,9 @@ and the robust kernel dropped in the last round, plus the optional motion
 prior edge anchored at the initial pose.  The pose is updated by
 left-multiplicative se(3) increments, T <- exp(xi) T; the reference's
 `fori_loop` is a Python loop here.
+
+`pose_only_ba` takes a leading batch axis (T_cw [B,4,4], edges [B,N]): one
+6x6 system per lane, solved together (batched VO, `models/batch_vo.py`).
 """
 
 from __future__ import annotations
@@ -92,8 +95,10 @@ def pose_only_ba(
     """Motion-only BA: optimise T_cw holding the landmarks fixed.
     `prior_weight` > 0 (a float, or a scalar tensor on the points' device,
     never read back) adds a motion-prior edge anchored at T_cw_init with
-    information prior_weight * diag(1,1,1, 4,4,4)."""
-    N = pts_w.shape[0]
+    information prior_weight * diag(1,1,1, 4,4,4).  With a batch (T_cw_init
+    [...,4,4], edges [...,N]) every lane is its own problem."""
+    lead = pts_w.shape[:-2]
+    N = pts_w.shape[-2]
     dev, dt = pts_w.device, pts_w.dtype
     # filled on the device: a tensor built from host data would be a
     # host-device copy that waits for the stream
@@ -121,14 +126,14 @@ def pose_only_ba(
         w_huber = huber_weight(chi2, chi2_th) if robust \
             else torch.ones_like(chi2)
         w = info * w_huber * (valid & inlier_mask & depth_ok)
-        Jw = J * w[:, None, None]
-        H = torch.einsum("nri,nrj->ij", Jw, J)
-        b = torch.einsum("nri,nr->i", Jw, r)
+        Jw = J * w[..., None, None]
+        H = torch.einsum("...nri,...nrj->...ij", Jw, J)
+        b = torch.einsum("...nri,...nr->...i", Jw, r)
         return H, b, chi2
 
     T_prior_inv = T_inv(T_cw_init)
     T = T_cw_init
-    inlier_mask = torch.ones(N, dtype=torch.bool, device=dev)
+    inlier_mask = torch.ones(lead + (N,), dtype=torch.bool, device=dev)
     for rnd in range(cfg.pose_rounds):
         robust = rnd < cfg.pose_rounds - 1   # kernel dropped in the last round
         lam = 1e-4
@@ -137,10 +142,14 @@ def pose_only_ba(
             # prior edge: r_p = log(T * T_init^-1), J = I to first order
             r_p = se3_log(T @ T_prior_inv)
             H = H + H_prior
-            b = b + H_prior @ r_p
-            Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye6
+            # one frame keeps its matrix-vector product (and its kernel)
+            b = b + (H_prior @ r_p[..., None])[..., 0] if lead \
+                else b + H_prior @ r_p
+            Hd = H + lam * torch.diag_embed(torch.diagonal(H, 0, -2, -1)) \
+                + 1e-9 * eye6
             xi = -chol_solve(Hd, b)
-            xi = torch.where(torch.all(torch.isfinite(xi)), xi, zero6)
+            xi = torch.where(torch.all(torch.isfinite(xi), -1, keepdim=True),
+                             xi, zero6)
             T = se3_exp(xi) @ T
         _, _, chi2 = edge_terms(T, inlier_mask, robust)
         inlier_mask = chi2 <= chi2_th       # reclassification between rounds
@@ -149,6 +158,6 @@ def pose_only_ba(
     return PoseBAResult(
         T_cw=T,
         inliers=final_inliers,
-        n_inliers=torch.sum(final_inliers.to(torch.int32)),
+        n_inliers=torch.sum(final_inliers.to(torch.int32), -1),
         chi2=chi2,
     )

@@ -14,9 +14,13 @@ round half to even.  The few-term sums behind the bits (a FREAK field's mean
 over 9 samples, a LATCH window's SSD over 9 pixels) are added in index
 order, as XLA's loop adds them.
 
-All describe_* functions share one signature:
-    describe(img_blurred [H,W], xy [K,2]) -> (desc, angle [K])
-with angle the intensity-centroid angle; FREAK, LATCH and SIFT steer by it.
+`describe(name, img_blurred [H,W], xy [K,2]) -> (desc, angle [K])` runs a
+family's `*_from_patches(patches, angles)` on `extract_patches` and
+`ic_angle`, the intensity-centroid angle that FREAK, LATCH and SIFT steer
+by.  It also takes a batch (img [B,H,W], xy [B,K,2]): it gathers each
+lane's patches from its own image, takes the angles per lane (`ops/orb.py`
+says why) and folds the batch into the patch rows, so every family runs
+batched through the same code as one image.
 """
 
 from __future__ import annotations
@@ -79,12 +83,10 @@ def _on(device: torch.device, which: str) -> tuple[torch.Tensor, ...]:
 # BRIEF: the non-steered original
 # --------------------------------------------------------------------------
 
-def describe_brief(img_blurred: torch.Tensor, xy: torch.Tensor):
-    """Unrotated BRIEF-256: rBRIEF's test pairs, no steering."""
-    patches = extract_patches(img_blurred, xy)
-    angles = ic_angle(patches)  # reported, not applied
-    bits = brief_descriptors(patches, torch.zeros_like(angles))
-    return pack_bits(bits), angles
+def brief_from_patches(patches: torch.Tensor, angles: torch.Tensor):
+    """Unrotated BRIEF-256: rBRIEF's test pairs, no steering (the angle is
+    reported, not applied)."""
+    return pack_bits(brief_descriptors(patches, torch.zeros_like(angles)))
 
 
 # --------------------------------------------------------------------------
@@ -139,18 +141,17 @@ def _freak_index(angles: torch.Tensor) -> torch.Tensor:
                           sa).reshape(angles.shape[0], -1)
 
 
-def describe_freak(img_blurred: torch.Tensor, xy: torch.Tensor):
+def freak_from_patches(patches: torch.Tensor,                 # [K,31,31]
+                       angles: torch.Tensor):
     """FREAK-style binary descriptor: retinal field means compared in 256
     pairs, the sample points steered by the IC angle."""
-    _, pairs = _on(img_blurred.device, "freak")
-    patches = extract_patches(img_blurred, xy)                # [K,31,31]
-    angles = ic_angle(patches)
+    _, pairs = _on(patches.device, "freak")
     K = patches.shape[0]
     vals = torch.gather(patches.reshape(K, PATCH * PATCH), 1,
                         _freak_index(angles)).reshape(K, 43, 9)
     fields = _sum_last(vals) / 9.0                            # [K,43]
     bits = fields[:, pairs[:, 0]] < fields[:, pairs[:, 1]]
-    return pack_bits(bits), angles
+    return pack_bits(bits)
 
 
 # --------------------------------------------------------------------------
@@ -197,18 +198,17 @@ def _latch_index(angles: torch.Tensor) -> torch.Tensor:
     return idx.reshape(angles.shape[0], -1)
 
 
-def describe_latch(img_blurred: torch.Tensor, xy: torch.Tensor):
+def latch_from_patches(patches: torch.Tensor,                 # [K,31,31]
+                       angles: torch.Tensor):
     """LATCH-style binary descriptor: bit b is SSD(anchor_b, p1_b) <
     SSD(anchor_b, p2_b) over 3x3 windows around steered centers."""
-    patches = extract_patches(img_blurred, xy)                # [K,31,31]
-    angles = ic_angle(patches)
     K = patches.shape[0]
     vals = torch.gather(patches.reshape(K, PATCH * PATCH), 1,
                         _latch_index(angles))
     windows = vals.reshape(K, N_BITS, 3, 9)                   # anchor, p1, p2
     ssd1 = _sum_last((windows[:, :, 0] - windows[:, :, 1]) ** 2)
     ssd2 = _sum_last((windows[:, :, 0] - windows[:, :, 2]) ** 2)
-    return pack_bits(ssd1 < ssd2), angles
+    return pack_bits(ssd1 < ssd2)
 
 
 # --------------------------------------------------------------------------
@@ -260,9 +260,14 @@ def describe_sift(img_blurred: torch.Tensor, xy: torch.Tensor):
     Gradients are finite differences between rotated-grid gathers, so the
     orientations are relative to the keypoint's angle.
     -> ([K,128] float32, angle [K])."""
-    _, wmat = _on(img_blurred.device, "sift")                 # [256,16]
-    patches = extract_patches(img_blurred, xy)                # [K,31,31]
+    patches = extract_patches(img_blurred, xy)
     angles = ic_angle(patches)
+    return sift_from_patches(patches, angles), angles
+
+
+def sift_from_patches(patches: torch.Tensor,                  # [K,31,31]
+                      angles: torch.Tensor):
+    _, wmat = _on(patches.device, "sift")                     # [256,16]
     K = patches.shape[0]
     right, left, down, up = torch.gather(
         patches.reshape(K, PATCH * PATCH), 1, _sift_index(angles)
@@ -290,16 +295,12 @@ def describe_sift(img_blurred: torch.Tensor, xy: torch.Tensor):
     d = torch.clamp(d, max=0.2)
     d = d / torch.clamp(torch.linalg.vector_norm(d, dim=1, keepdim=True),
                         min=1e-8)
-    return d, angles
+    return d
 
 
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
-
-def describe_orb(img_blurred: torch.Tensor, xy: torch.Tensor):
-    return orb.describe(img_blurred, xy)
-
 
 DESCRIPTOR_ALIASES = {
     "ORB_SLAM2": "ORB",
@@ -308,21 +309,21 @@ DESCRIPTOR_ALIASES = {
     "SURF": "SIFT",     # float gradient-histogram family
 }
 
-_DESCRIBE_FNS = {
-    "ORB": describe_orb,
-    "BRIEF": describe_brief,
-    "FREAK": describe_freak,
-    "LATCH": describe_latch,
-    "SIFT": describe_sift,
+_FROM_PATCHES = {
+    "ORB": orb.describe_patches,
+    "BRIEF": brief_from_patches,
+    "FREAK": freak_from_patches,
+    "LATCH": latch_from_patches,
+    "SIFT": sift_from_patches,
 }
 
 
 def canonical(name: str) -> str:
     n = name.upper()
     n = DESCRIPTOR_ALIASES.get(n, n)
-    if n not in _DESCRIBE_FNS:
+    if n not in _FROM_PATCHES:
         raise ValueError(
-            f"unknown descriptor {name!r}; have {sorted(_DESCRIBE_FNS)} "
+            f"unknown descriptor {name!r}; have {sorted(_FROM_PATCHES)} "
             f"(+ aliases {sorted(DESCRIPTOR_ALIASES)})")
     return n
 
@@ -349,5 +350,10 @@ def is_binary(name: str) -> bool:
 
 
 def describe(name: str, img_blurred: torch.Tensor, xy: torch.Tensor):
-    """-> (desc [K,8] int32 words, or [K,128] float32 for SIFT; angle [K])."""
-    return _DESCRIBE_FNS[canonical(name)](img_blurred, xy)
+    """img_blurred [..., H, W], xy [..., K, 2] -> (desc [..., K, 8] int32
+    words, or [..., K, 128] float32 for SIFT; angle [..., K])."""
+    patches = extract_patches(img_blurred, xy)                # [...,K,31,31]
+    angles = ic_angle(patches)                                # [...,K]
+    desc = _FROM_PATCHES[canonical(name)](
+        patches.reshape((-1, PATCH, PATCH)), angles.reshape(-1))
+    return desc.reshape(xy.shape[:-1] + desc.shape[-1:]), angles

@@ -7,7 +7,8 @@ pipeline as FAST (`ops/fast.py`), so the adaptive mode works for every
 family.  Per-family threshold defaults and clamps are in `DETECTOR_DEFAULTS`.
 
 Signature (as `fast.fast_response`): ``response(img, threshold)`` with
-``img [H,W] float32`` and a scalar or [H,W] ``threshold`` -> [H,W] float32.
+``img [..., H, W] float32`` (one image, or a batch with the batch first) and
+a scalar or [..., H, W] ``threshold`` -> [..., H, W] float32.
 
 `jnp.roll` wraps around the edge, as `torch.roll` does; the border strip it
 spoils is cleared by `_gate`.  The reference's `lax.reduce_window` sum with
@@ -34,13 +35,15 @@ from aslam_tpu_torch.ops import fast, pyramid
 
 def _box_sum(img: torch.Tensor, n: int) -> torch.Tensor:
     """Sum over an n x n window, n odd, zero padding n // 2 (SAME)."""
-    return F.avg_pool2d(img[None, None], n, stride=1, padding=n // 2,
-                        count_include_pad=True, divisor_override=1)[0, 0]
+    H, W = img.shape[-2:]
+    return F.avg_pool2d(img.reshape(-1, 1, H, W), n, stride=1, padding=n // 2,
+                        count_include_pad=True,
+                        divisor_override=1).reshape(img.shape)
 
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """img[y + dy, x + dx] at (y, x), wrapping around the edge."""
-    return torch.roll(img, (-dy, -dx), (0, 1))
+    return torch.roll(img, (-dy, -dx), (-2, -1))
 
 
 def sobel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -68,7 +71,7 @@ def structure_tensor(img: torch.Tensor, block: int = 3):
 
 
 def _border_mask(img: torch.Tensor, b: int) -> torch.Tensor:
-    H, W = img.shape
+    H, W = img.shape[-2:]
     row = torch.arange(H, device=img.device)[:, None]
     col = torch.arange(W, device=img.device)[None, :]
     return (row >= b) & (row < H - b) & (col >= b) & (col < W - b)

@@ -11,6 +11,9 @@ is float32 [N,128].
     integer in [-256, 256] and the matmul runs in full float32
     (`device.py`), so it is exact and equal to the popcount.  For float
     descriptors, `l2_distance_matrix`.
+
+Each takes a leading batch axis ([..., Na, 8] x [..., Nb, 8] -> [..., Na,
+Nb]): a batched matmul over the lanes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ INVALID_DIST = 1e6
 
 
 def signs_from_packed(words: torch.Tensor) -> torch.Tensor:
-    """int32 [N,8] -> ±1 float32 [N,256]."""
+    """int32 [..., N, 8] -> ±1 float32 [..., N, 256]."""
     return unpack_bits(words).to(torch.float32) * 2.0 - 1.0
 
 
@@ -35,22 +38,23 @@ def is_packed(desc: torch.Tensor) -> bool:
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """Descriptor distances [Na, Nb] float32: Hamming over packed words, L2
-    over float descriptors (the reference's dtype dispatch)."""
+    """Descriptor distances [..., Na, Nb] float32: Hamming over packed
+    words, L2 over float descriptors (the reference's dtype dispatch)."""
     if not is_packed(desc_a):
         return l2_distance_matrix(desc_a, desc_b)
-    dot = signs_from_packed(desc_a) @ signs_from_packed(desc_b).T
+    dot = signs_from_packed(desc_a) @ signs_from_packed(desc_b).transpose(-1, -2)
     return (BITS - dot) * 0.5
 
 
 def l2_distance_matrix(desc_a: torch.Tensor,
                        desc_b: torch.Tensor) -> torch.Tensor:
-    """Euclidean distances [Na, Nb] float32 between float descriptors:
+    """Euclidean distances [..., Na, Nb] float32 between float descriptors:
     |a-b|² = |a|² + |b|² - 2ab, the cross term a full-float32 matmul."""
     a = desc_a.to(torch.float32)
     b = desc_b.to(torch.float32)
-    sq = (torch.sum(a * a, dim=1)[:, None] + torch.sum(b * b, dim=1)[None, :]
-          - 2.0 * (a @ b.T))
+    sq = (torch.sum(a * a, dim=-1)[..., :, None]
+          + torch.sum(b * b, dim=-1)[..., None, :]
+          - 2.0 * (a @ b.transpose(-1, -2)))
     return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
@@ -81,5 +85,5 @@ def masked_distance_matrix(
 ) -> torch.Tensor:
     """Distance matrix with INVALID_DIST where either side is padding."""
     d = distance_matrix(desc_a, desc_b)
-    mask = valid_a[:, None] & valid_b[None, :]
+    mask = valid_a[..., :, None] & valid_b[..., None, :]
     return torch.where(mask, d, torch.full_like(d, INVALID_DIST))

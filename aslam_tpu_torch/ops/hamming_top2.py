@@ -8,7 +8,9 @@ tensors it runs `hamming_top2_plain`.  Both return, per query row, what the
 reference's default path returns (`masked_distance_matrix` then
 `lax.top_k`): d1 the smallest distance, i1 the lowest index attaining it, d2
 the second value of the sorted row (d2 == d1 on a tie), with every masked
-pair at exactly INVALID_DIST.
+pair at exactly INVALID_DIST.  Both also take a batch of B independent
+problems, [B,N,8] x [B,M,8] (batched VO): one launch of the kernel for all
+B, its grid's y the lane.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ SLOTS = 12
 KEY_SHIFT = 22
 MASKED = 512
 MAX_TARGETS = 1 << KEY_SHIFT
+MAX_LANES = 65535                   # the grid's y
 
 # What `hamming_top2_bound` divides by: one NVIDIA H100 SXM at its 700 W limit.
 # 1-bit tensor-core rate: no data sheet gives one for this card, so it is the
@@ -49,15 +52,17 @@ BYTES_PER_S = 3.35e12               # HBM3
 
 def hamming_top2_plain(desc_a: torch.Tensor, valid_a: torch.Tensor,
                        desc_b: torch.Tensor, valid_b: torch.Tensor):
-    """Masked distance matrix + a stable ascending sort of each row.
-    -> (d1 [N] f32, i1 [N] int32, d2 [N] f32)."""
+    """Masked distance matrix + a stable ascending sort of each row, over
+    [N,8] x [M,8] or a batch [B,N,8] x [B,M,8].
+    -> (d1 [..., N] f32, i1 [..., N] int32, d2 [..., N] f32)."""
     d = masked_distance_matrix(desc_a, valid_a, desc_b, valid_b)
-    vals, idx = torch.sort(d, dim=1, stable=True)
-    return vals[:, 0], idx[:, 0].to(torch.int32), vals[:, 1]
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return vals[..., 0], idx[..., 0].to(torch.int32), vals[..., 1]
 
 
-def hamming_top2_bound(n: int, m: int) -> dict:
-    """The least time one H100 could take for an [n] x [m] call.
+def hamming_top2_bound(n: int, m: int, b: int = 1) -> dict:
+    """The least time one H100 could take for an [n] x [m] call (or for b
+    of them in one batched call: work and bytes times b).
 
     The operations are those of one 256-deep 1-bit product per pair on the
     tensor cores, 2*n*m*256, over the rate that the card was measured to
@@ -70,8 +75,8 @@ def hamming_top2_bound(n: int, m: int) -> dict:
     results per clock per SM (NVIDIA's table of arithmetic
     instruction throughput, compute capability 9.0) on 132 SMs at 1.98 GHz
     (`POPC_PER_S`): the bound of a design on XOR and `__popc`."""
-    mma_ops, popc = 2 * n * m * 256, n * m * 8
-    nbytes = (n + m) * (32 + 1) + 3 * n * 4
+    mma_ops, popc = 2 * b * n * m * 256, b * n * m * 8
+    nbytes = b * ((n + m) * (32 + 1) + 3 * n * 4)
     mma_us, bytes_us = mma_ops / MMA_OPS_PER_S * 1e6, nbytes / BYTES_PER_S * 1e6
     return {"mma_ops": mma_ops, "popc": popc, "bytes": nbytes,
             "popc_us": popc / POPC_PER_S * 1e6,
@@ -88,7 +93,7 @@ def _kernel():
         from aslam_tpu_torch.kernels import build
 
         fn = build.load("hamming_top2").hamming_top2_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _launch = fn
@@ -98,6 +103,11 @@ def _kernel():
 def _raise_bad_input(desc_a, valid_a, desc_b, valid_b):
     """The detailed message for inputs that the kernel does not take."""
     dev = desc_a.device
+    lead = tuple(desc_a.shape[:-2])
+    if not 2 <= desc_a.dim() == desc_b.dim() <= 3:
+        raise ValueError(f"hamming_top2 takes [N,8] x [M,8] or a batch "
+                         f"[B,N,8] x [B,M,8], got {tuple(desc_a.shape)} x "
+                         f"{tuple(desc_b.shape)}")
     for name, t, dtype, width in (("desc_a", desc_a, torch.int32, 8),
                                   ("valid_a", valid_a, torch.bool, None),
                                   ("desc_b", desc_b, torch.int32, 8),
@@ -108,49 +118,61 @@ def _raise_bad_input(desc_a, valid_a, desc_b, valid_b):
             raise ValueError("hamming_top2 inputs lie on different cards")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        rows = (desc_a if name.endswith("_a") else desc_b).shape[0]
-        shape = (rows,) if width is None else (rows, width)
+        side = desc_a if name.endswith("_a") else desc_b
+        rows = side.shape[-2]
+        shape = lead + ((rows,) if width is None else (rows, width))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if width is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a multiple of 16 bytes")
+    if lead and lead[0] > MAX_LANES:
+        raise ValueError(f"hamming_top2 takes at most {MAX_LANES} lanes, "
+                         f"got {lead[0]}")
     raise ValueError(f"hamming_top2 takes at most {MAX_TARGETS} targets, "
-                     f"got {desc_b.shape[0]}")
+                     f"got {desc_b.shape[-2]}")
 
 
 def hamming_top2(desc_a: torch.Tensor, valid_a: torch.Tensor,
                  desc_b: torch.Tensor, valid_b: torch.Tensor):
     """desc_a [N,8] int32, valid_a [N] bool, desc_b [M,8] int32, valid_b [M]
     bool -> (d1 [N] f32, i1 [N] int32, d2 [N] f32), the three rows of one
-    [3, N] buffer.
+    [3, N] buffer.  Or a batch: [B,N,8], [B,N], [B,M,8], [B,M] -> [B,N] each,
+    the rows of one [B, 3, N] buffer.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    their card's current stream and add one to `hamming_top2.launches`.  The
-    call does not synchronise and allocates only its output, through
-    PyTorch's allocator, so it can be captured in a CUDA graph once a first
-    call has built and loaded the kernel; `launches` then counts the calls
-    made while capturing, not the replays."""
+    their card's current stream, once whatever B is, and add one to
+    `hamming_top2.launches`.  The call does not synchronise and allocates
+    only its output, through PyTorch's allocator, so it can be captured in a
+    CUDA graph once a first call has built and loaded the kernel; `launches`
+    then counts the calls made while capturing, not the replays."""
     dev = desc_a.device
     if dev.type == "cpu":
         return hamming_top2_plain(desc_a, valid_a, desc_b, valid_b)
-    n, m = desc_a.shape[0], desc_b.shape[0]
+    if not 2 <= desc_a.dim() == desc_b.dim() <= 3:
+        _raise_bad_input(desc_a, valid_a, desc_b, valid_b)
+    lead = desc_a.shape[:-2]
+    b = desc_a.shape[0] if lead else 1
+    n, m = desc_a.shape[-2], desc_b.shape[-2]
     pa, pb = desc_a.data_ptr(), desc_b.data_ptr()
     # a bool tensor is one byte of 0/1 per element: the kernel reads it in place
     if not (desc_a.dtype == desc_b.dtype == torch.int32
             and valid_a.dtype == valid_b.dtype == torch.bool
-            and desc_a.shape == (n, 8) and desc_b.shape == (m, 8)
-            and valid_a.shape == (n,) and valid_b.shape == (m,)
+            and desc_a.shape == lead + (n, 8) and desc_b.shape == lead + (m, 8)
+            and valid_a.shape == lead + (n,) and valid_b.shape == lead + (m,)
             and dev == valid_a.device == desc_b.device == valid_b.device
             and desc_a.is_contiguous() and desc_b.is_contiguous()
             and valid_a.is_contiguous() and valid_b.is_contiguous()
-            and pa % 16 == 0 and pb % 16 == 0 and m <= MAX_TARGETS):
+            and pa % 16 == 0 and pb % 16 == 0 and m <= MAX_TARGETS
+            and b <= MAX_LANES):
         _raise_bad_input(desc_a, valid_a, desc_b, valid_b)
     launch = _launch or _kernel()
-    # rows d1, i1, d2; the kernel writes i1's bits into the float32 buffer
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    args = (pa, valid_a.data_ptr(), pb, valid_b.data_ptr(), n, m, out.data_ptr())
+    # rows d1, i1, d2 per lane; the kernel writes i1's bits into the float32
+    # buffer
+    out = torch.empty(lead + (3, n), dtype=torch.float32, device=dev)
+    args = (pa, valid_a.data_ptr(), pb, valid_b.data_ptr(), b, n, m,
+            out.data_ptr())
     # the raw handle of the card's current stream, read at call time (what
     # torch.cuda.current_stream(dev).cuda_stream gives, without building a
     # Stream object: 0.1 us for 3-4 us)
@@ -163,7 +185,7 @@ def hamming_top2(desc_a: torch.Tensor, valid_a: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
     hamming_top2.launches += 1
-    d1, i1, d2 = out.unbind(0)
+    d1, i1, d2 = out.unbind(-2)
     return d1, i1.view(torch.int32), d2
 
 

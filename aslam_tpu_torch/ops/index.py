@@ -117,6 +117,25 @@ def index_add_ordered(out: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx, src)
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] per leading index: x [*L, N, *R], idx [*L, K] int64 ->
+    [*L, K, *R].  With no leading dims it is `x[idx]`; with a batch axis
+    each lane gathers from its own rows (a gather, exact)."""
+    d = idx.dim() - 1
+    rest = x.shape[d + 1:]
+    full = idx.reshape(idx.shape + (1,) * len(rest)).expand(idx.shape + rest)
+    return torch.gather(x, d, full)
+
+
+def take_pixels(img: torch.Tensor, yi: torch.Tensor,
+                xi: torch.Tensor) -> torch.Tensor:
+    """img[..., yi, xi] per leading index: img [*L, H, W], yi and xi int64
+    [*L, *K] -> [*L, *K] (`img[yi, xi]` with no leading dims)."""
+    lead = img.shape[:-2]
+    flat = (yi * img.shape[-1] + xi).reshape(lead + (-1,))
+    return torch.gather(img.flatten(-2), -1, flat).reshape(yi.shape)
+
+
 def pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """x[i] for a 0-d index tensor without a host read (a 0-d tensor index
     is read back to the host by torch's indexing)."""

@@ -8,10 +8,15 @@ kernel for tensors on the card, the plain version for CPU tensors.  Float
 JAX package, and never the kernel.  `projection_match` and `window_match`
 need a per-pair window mask, so they stay the reference's distance matrix
 plus `_top2`.  `-1` marks "no match".
+
+`knn_ratio_match` and `resolve_duplicates` take a leading batch axis
+([B, Q] rows of B independent frame pairs, batched VO): one kernel launch
+for the batch, and one scatter whose lanes claim disjoint ranges.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,14 +36,16 @@ class Matches(NamedTuple):
 
 
 def _top2(d: torch.Tensor):
-    """Row-wise two smallest distances -> (d1, i1, d2, i2), in the order of
-    `lax.top_k(-d, 2)`: i1 the lowest index of the minimum, i2 the lowest
-    other index of the next value (torch.argmin returns the first minimum)."""
-    i1 = torch.argmin(d, dim=1)
-    d1 = torch.gather(d, 1, i1[:, None])[:, 0]
-    rest = d.scatter(1, i1[:, None], float("inf"))
-    i2 = torch.argmin(rest, dim=1)
-    d2 = torch.gather(rest, 1, i2[:, None])[:, 0]
+    """Row-wise two smallest distances of [..., Q, T] -> (d1, i1, d2, i2),
+    in the order of `lax.top_k(-d, 2)`: i1 the lowest index of the minimum,
+    i2 the lowest other index of the next value (torch.argmin returns the
+    first minimum)."""
+    i1 = torch.argmin(d, dim=-1, keepdim=True)
+    d1 = torch.gather(d, -1, i1)[..., 0]
+    rest = d.scatter(-1, i1, float("inf"))
+    i2 = torch.argmin(rest, dim=-1, keepdim=True)
+    d2 = torch.gather(rest, -1, i2)[..., 0]
+    i1, i2 = i1[..., 0], i2[..., 0]
     return d1, i1.to(torch.int32), d2, i2.to(torch.int32)
 
 
@@ -64,16 +71,23 @@ def knn_ratio_match(
 def resolve_duplicates(matches: Matches, n_targets: int) -> Matches:
     """Keep only the lowest-distance query per claimed target index: a
     scatter-min over the key (distance, query index) elects one winner per
-    target deterministically."""
-    q = matches.target_idx.shape[0]
+    target deterministically.  Batched matches [..., Q] claim targets of
+    their own lane."""
+    lead = matches.target_idx.shape[:-1]
+    q = matches.target_idx.shape[-1]
     dev = matches.distance.device
     key = matches.distance * (q + 1) + torch.arange(q, dtype=torch.float32,
                                                     device=dev)
     tgt = torch.where(matches.valid, matches.target_idx,
                       torch.full_like(matches.target_idx, n_targets)).long()
-    best = torch.full((n_targets + 1,), float("inf"), dtype=torch.float32,
-                      device=dev).scatter_reduce(0, tgt, key, "amin")
-    win = matches.valid & (key <= best[tgt])
+    # lane b's targets (and its padding slot) at b * (n_targets + 1) onwards
+    n_lanes = math.prod(lead)
+    lane = torch.arange(n_lanes, device=dev).reshape(lead + (1,))
+    tgt = (tgt + lane * (n_targets + 1)).reshape(-1)
+    best = torch.full((n_lanes * (n_targets + 1),), float("inf"),
+                      dtype=torch.float32, device=dev).scatter_reduce(
+        0, tgt, key.reshape(-1), "amin")
+    win = matches.valid & (key <= best[tgt].reshape(key.shape))
     return Matches(
         target_idx=torch.where(win, matches.target_idx,
                                torch.full_like(matches.target_idx, -1)),

@@ -13,6 +13,13 @@ Descriptors are packed into int32 words [K, 8] holding the reference's
 uint32 bit patterns (bit i -> word i // 32): torch on the CPU has no shift
 for uint32, and an arithmetic shift of int32 followed by `& 1` reads every
 bit, bit 31 included.
+
+`extract_patches` takes a leading batch axis (img [..., H, W], xy [..., K,
+2]) and gathers each lane's patches from its own image, and `ic_angle` takes
+the batch of patches with one product per lane (a [B*K, 961] product rounds
+its rows otherwise than the [K, 961] one on an H100, and an angle an ulp off
+can change a rotation bin).  What follows the angle works on rows, so a
+batch is folded into them ([B*K, 31, 31]).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import functools
 
 import numpy as np
 import torch
+
+from aslam_tpu_torch.ops.index import take_pixels
 
 PATCH_RADIUS = 15
 PATCH = 2 * PATCH_RADIUS + 1  # 31
@@ -92,20 +101,27 @@ def _tables_on(device: torch.device):
 
 def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Gather 31x31 patches centred at the rounded keypoint coords, clamped so
-    every patch fits.  img [H,W], xy [K,2] (x, y) -> [K,31,31]."""
-    H, W = img.shape
-    x = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), PATCH_RADIUS,
+    every patch fits.  img [..., H, W], xy [..., K, 2] (x, y) ->
+    [..., K, 31, 31]."""
+    H, W = img.shape[-2:]
+    x = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), PATCH_RADIUS,
                     W - PATCH_RADIUS - 1)
-    y = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), PATCH_RADIUS,
+    y = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), PATCH_RADIUS,
                     H - PATCH_RADIUS - 1)
     off = torch.arange(-PATCH_RADIUS, PATCH_RADIUS + 1, device=img.device)
-    rows = (y[:, None] + off[None, :])[:, :, None]           # [K,31,1]
-    cols = (x[:, None] + off[None, :])[:, None, :]           # [K,1,31]
-    return img[rows, cols]
+    rows = (y[..., None] + off)[..., :, None]                # [...,K,31,1]
+    cols = (x[..., None] + off)[..., None, :]                # [...,K,1,31]
+    rows, cols = torch.broadcast_tensors(rows, cols)
+    return take_pixels(img, rows, cols)
 
 
 def ic_angle(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation per patch: [K,31,31] -> [K] radians."""
+    """Intensity-centroid orientation per patch: [..., K, 31, 31] -> [..., K]
+    radians."""
+    if patches.dim() > 3:
+        lanes = patches.reshape((-1,) + patches.shape[-3:])
+        return torch.stack([ic_angle(p) for p in lanes]).reshape(
+            patches.shape[:-2])
     wx, wy, _ = _tables_on(patches.device)
     flat = patches.reshape(patches.shape[0], PATCH * PATCH)
     m10 = flat @ wx
@@ -145,15 +161,13 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
-    """int32 [K,8] -> bool [K,256]."""
-    K = words.shape[0]
+    """int32 [..., 8] -> bool [..., 256]."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    b = (words[:, :, None] >> shifts[None, None, :]) & 1
-    return b.reshape(K, N_BITS).to(torch.bool)
+    b = (words[..., None] >> shifts) & 1
+    return b.reshape(words.shape[:-1] + (N_BITS,)).to(torch.bool)
 
 
-def describe(img_blurred: torch.Tensor, xy: torch.Tensor):
-    """Descriptor path for one pyramid level -> (desc [K,8] int32, angle [K])."""
-    patches = extract_patches(img_blurred, xy)
-    angles = ic_angle(patches)
-    return pack_bits(brief_descriptors(patches, angles)), angles
+def describe_patches(patches: torch.Tensor, angles: torch.Tensor):
+    """[K,31,31] patches and their [K] angles -> desc [K,8] int32."""
+    return pack_bits(brief_descriptors(patches, angles))
+

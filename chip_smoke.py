@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on a CUDA card: config-1 VO, config-2
 SLAM, config-3 (GICP escalation) VO and SLAM, loop closing, the host shell
-(the CLI from a TUM directory on disk, both engines, sessions) and the other
-detector and descriptor families.
+(the CLI from a TUM directory on disk, both engines, sessions), the other
+detector and descriptor families, batched VO and the viewers.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -86,7 +86,24 @@ Phases, one printed line each (or more, for phases 3 and 4):
      FAST+ORB's beside them; (c) the CLI `--mode slam+gicp --engine device
      --chunk 32 --detector GFTT --descriptor LATCH` over the walk's 64 PNGs,
      held to phase 7's gates against the JAX package through the same path;
-     (d) a second run of (c), bit-identical to the first.
+     (d) a second run of (c), bit-identical to the first;
+  9. batched VO at full width: (a) `hamming_top2` with its batch axis at B =
+     16 x 1024 x 1024 with masks and ties, exactly equal to the batched plain
+     version and to 16 unbatched calls; its device time (CUDA graph) beside
+     16 unbatched launches', the floor and the bound x 16; (b)
+     `BatchVisualOdometry` at B = 1, 4 and 16 over 16 frames of 16 rendered
+     sequences (seeds 50 + b, uint8 / uint16), through `process` and through
+     `process_chunk` in two chunks: chunked == stream bit for bit, one kernel
+     launch per batched step, CUDA kernels per step (torch.profiler) at B =
+     16 at most 1.2x those at B = 1 and at most 100 more per extra lane,
+     every lane's ATE below 1 cm and lanes 0-3 within 1.5x the JAX
+     package's; aggregate frame-tracks per second,
+     ms per step, busy share and peak memory per B; then at B = 16 with
+     injected draws, lanes 0-3 against the unbatched `track_frame` chain
+     within 1e-4 on T, with the descriptor bits that differ; (c) the CLI
+     `--mode slam+gicp --engine device --chunk 32 --render-map --viewer 0`
+     over the walk's 64 PNGs: a non-empty map.png, one GET of the viewer's
+     state with keyframes and 64 trajectory rows, and phase 7(b)'s ATE.
 Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
@@ -95,6 +112,7 @@ refuses to run without a CUDA device, and it imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -181,6 +199,16 @@ JAX_FAMILY_ATE_M = {("DOG", "SIFT"): 0.002333074804979112,
 #     the `device` mode above with --detector GFTT --descriptor LATCH: the CLI
 #     of phase 8(c) (raw, rebuilt)
 JAX_CLI_FAMILY_ATE_M = (0.0012753416043231815, 0.001177245822065391)
+# ATE of the JAX package's batched VO, one per lane:
+#   ... port_reference_ate.py batch   (78 s)
+#     `BatchVisualOdometry` (B = 4) over 16 frames of the sequences of phase
+#     9(b)'s lanes 0-3 (uint8 / uint16), `process` per frame
+JAX_BATCH_ATE_M = (0.002146345737719163, 0.00566595295701858,
+                   0.0010613850590123226, 0.0013762852774177224)
+N_BATCH = 16            # sequences of phase 9, and the most lanes a run takes
+N_BATCH_FRAMES = 16     # frames of each
+BATCHES = (1, 4, 16)
+MAX_KERNELS_PER_LANE = 100   # CUDA kernels a step adds per lane past the first
 DETECTORS = ("FAST", "GFTT", "HARRIS", "DOG", "HESSIAN", "STAR")
 DESCRIPTORS = ("ORB", "BRIEF", "FREAK", "LATCH", "SIFT")
 
@@ -231,11 +259,27 @@ def _top2_cases(dev):
     return cases
 
 
-def phase2_kernel_vs_plain(dev):
-    """-> the `hamming_top2` entry of the kernels line, its launches apart."""
+@functools.lru_cache(maxsize=1)
+def _empty_kernel():
     import ctypes
 
     from aslam_tpu_torch.kernels import build
+
+    empty = build.load("hamming_top2").hamming_top2_empty_launch
+    empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return empty
+
+
+def launch_empty(n, m, b=1):
+    """The kernel of `csrc/hamming_top2.cu` that does nothing, at the grid,
+    block and shared memory of a b x [n] x [m] call: a launch's floor."""
+    if _empty_kernel()(b, n, m, torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("the empty kernel did not launch")
+
+
+def phase2_kernel_vs_plain(dev):
+    """-> the `hamming_top2` entry of the kernels line, its launches apart."""
     from aslam_tpu_torch.kernels.bench_top2 import (event_us, graph_us, host_us,
                                                     mma_peak_ops_per_s)
     from aslam_tpu_torch.ops.hamming_top2 import (MMA_OPS_PER_S, hamming_top2,
@@ -262,14 +306,6 @@ def phase2_kernel_vs_plain(dev):
         del out, ref
     print(f"phase 2: hamming_top2 == plain exactly (tolerance 0, max abs err "
           f"{err}) on {len(cases)} cases: {', '.join(cases)}", flush=True)
-
-    empty = build.load("hamming_top2").hamming_top2_empty_launch
-    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    empty.restype = ctypes.c_int
-
-    def launch_empty(n, m):
-        if empty(n, m, torch.cuda.current_stream().cuda_stream) != 0:
-            raise RuntimeError("the empty kernel did not launch")
 
     # the main path's shape: eager per-call times in turns, then the device
     # time free of the host, the least a launch of this shape takes, and the
@@ -867,6 +903,7 @@ def phase7_host_shell(dev, card, walk):
                                  f"{n_kfs} keyframes")
         launches += k
         reads = metrics.counters["host_reads"]
+        ate_device = ate
         print(f"phase 7: main --mode slam+gicp --engine device --chunk "
               f"{n // 2}: {n} frames, ATE {ate * 100:.3f} cm, rebuilt "
               f"{ate_r * 100:.3f} cm (JAX {ref[0] * 100:.3f} / "
@@ -1031,7 +1068,7 @@ def phase7_host_shell(dev, card, walk):
               f"{sys1.tracking.kf_counter}; "
               f"{_cli_line(metrics, k, seconds, N_SECOND)} [{card}]",
               flush=True)
-    return launches
+    return launches, ate_device
 
 
 def _events_ms(fn, iters=5):
@@ -1252,6 +1289,305 @@ def phase8_families(dev, card, vo_frames, walk):
     return launches
 
 
+def _batched_top2_inputs(rng, dev, b, n=1024, m=1024):
+    """`top2_inputs` for b lanes, stacked: masks and ties in every lane, one
+    lane with no valid target and one with no valid query."""
+    from aslam_tpu_torch.kernels.bench_top2 import top2_inputs
+
+    lanes = [top2_inputs(rng, dev, n, m) for _ in range(b)]
+    lanes[1][3] = torch.zeros_like(lanes[1][3])
+    lanes[2][1] = torch.zeros_like(lanes[2][1])
+    return lanes, [torch.stack([lane[k] for lane in lanes]) for k in range(4)]
+
+
+def _phase9a_kernel(dev, card, kernel):
+    """The batched kernel at B = 16: exact against the batched plain version
+    and against 16 unbatched calls, then its device time, 16 unbatched
+    launches' and the floor, beside the bound x 16.  Adds its numbers to the
+    kernel's entry of the kernels line."""
+    from aslam_tpu_torch.kernels.bench_top2 import event_us, graph_us
+    from aslam_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                  hamming_top2_bound,
+                                                  hamming_top2_plain)
+
+    rng = np.random.default_rng(9)
+    lanes, args = _batched_top2_inputs(rng, dev, N_BATCH)
+    out = hamming_top2(*args)
+    ref = hamming_top2_plain(*args)
+    single = [hamming_top2(*lane) for lane in lanes]
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in range(3):
+        per_lane = torch.stack([x[k] for x in single])
+        for name, y in (("the batched plain version", ref[k]),
+                        ("16 unbatched calls", per_lane)):
+            if not torch.equal(out[k], y):
+                bad = (out[k] != y).nonzero()[:5].tolist()
+                raise AssertionError(f"batched hamming_top2 output {k} differs "
+                                     f"from {name} at [lane, row] {bad}")
+            err = max(err, float((out[k].double() - y.double()).abs().max()))
+    del out, ref, single
+
+    def sixteen():
+        for lane in lanes:
+            hamming_top2(*lane)
+
+    device_us = graph_us(lambda: hamming_top2(*args))
+    loop_us = graph_us(sixteen, launches=4)
+    floor_us = graph_us(lambda: launch_empty(1024, 1024, N_BATCH))
+    call_us = event_us(lambda: hamming_top2(*args))
+    plain_us = event_us(lambda: hamming_top2_plain(*args), iters=20)
+    bound = hamming_top2_bound(1024, 1024, N_BATCH)
+    print(f"phase 9: batched hamming_top2, B = {N_BATCH} x 1024 x 1024 with "
+          f"masks and ties: == the batched plain version and == {N_BATCH} "
+          f"unbatched calls exactly (tolerance 0, max abs err {err}); device "
+          f"{device_us:.2f} us (CUDA graph) against {loop_us:.2f} us for "
+          f"{N_BATCH} unbatched launches, floor {floor_us:.2f} us (empty "
+          f"kernel, same grid), bound {bound['bound_us']:.3f} us "
+          f"({bound['bound_by']}, the 1024 x 1024 bound x {N_BATCH}); per eager "
+          f"call {call_us:.1f} us, plain {plain_us:.0f} us [{card}]",
+          flush=True)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    kernel.update({
+        "device_ms_b16": device_us / 1e3,
+        "unbatched_x16_device_ms": loop_us / 1e3,
+        "floor_ms_b16": floor_us / 1e3,
+        "ms_b16": call_us / 1e3,
+        "plain_ms_b16": plain_us / 1e3,
+        "bound_ms_b16": bound["bound_us"] / 1e3,
+    })
+
+
+def _batch_frames(cam):
+    """16 frames of each of the 16 rendered sequences of phase 9, as uint8 /
+    uint16 [B,F,H,W], and their true poses [B,F,4,4]."""
+    from aslam_tpu_torch.utils import synthetic
+
+    seqs = [synthetic.make_sequence(n_frames=N_BATCH_FRAMES, n_points=1500,
+                                    cam=cam, seed=50 + b)
+            for b in range(N_BATCH)]
+    imgs = np.stack([np.clip(s[0], 0, 255).astype(np.uint8) for s in seqs])
+    deps = np.stack([np.clip(s[1] / cam.depth_factor, 0, 65535)
+                     .astype(np.uint16) for s in seqs])
+    return imgs, deps, np.stack([s[2] for s in seqs])
+
+
+def _lane_ates(traj, gt):
+    """ATE of each lane of a [F-1,B,4,4] trajectory (frame 0 at the
+    identity) against its [B,F,4,4] truth."""
+    from aslam_tpu_torch.utils import trajectory
+
+    return [trajectory.ate_rmse(
+        trajectory.camera_centers(np.concatenate([np.eye(4)[None], traj[:, b]])),
+        trajectory.camera_centers(gt[b])) for b in range(traj.shape[1])]
+
+
+def _profiled_step(bvo, img, dep):
+    """One batched step under torch.profiler -> (CUDA kernels, device ms,
+    wall s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bvo.process(img, dep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3, wall)
+
+
+def _phase9b_batch_vo(dev, card, cfg):
+    """`BatchVisualOdometry` at B = 1, 4 and 16 -> kernel launches."""
+    from aslam_tpu_torch.models import odometry
+    from aslam_tpu_torch.models.batch_vo import BatchVisualOdometry
+    from aslam_tpu_torch.models.extractor import init_grid_thresholds
+    from aslam_tpu_torch.models.frame import make_frame
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.ops.orb import unpack_bits
+
+    imgs, deps, gt = _batch_frames(cfg.camera)
+    F = N_BATCH_FRAMES
+    half = F // 2
+    launches = 0
+    kernels = {}
+    for B in BATCHES:
+        # warm-up at this batch's shapes (allocator, cuBLAS handles)
+        warm = BatchVisualOdometry(cfg, B, dev, seed=1)
+        for f in range(3):
+            warm.process(imgs[:B, f], deps[:B, f])
+        n_k, dev_ms, wall = _profiled_step(warm, imgs[:B, 3], deps[:B, 3])
+        kernels[B] = n_k
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        hamming_top2.launches = 0
+        t0 = time.perf_counter()
+        stream = BatchVisualOdometry(cfg, B, dev, seed=0)
+        for f in range(F):
+            stream.process(imgs[:B, f], deps[:B, f])
+        traj = stream.trajectories()
+        s_stream = time.perf_counter() - t0
+        k_stream = hamming_top2.launches
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        hamming_top2.launches = 0
+        t0 = time.perf_counter()
+        chunked = BatchVisualOdometry(cfg, B, dev, seed=0)
+        chunked.process_chunk(imgs[:B, :half], deps[:B, :half])
+        chunked.process_chunk(imgs[:B, half:], deps[:B, half:])
+        traj_c = chunked.trajectories()
+        s_chunk = time.perf_counter() - t0
+        k_chunk = hamming_top2.launches
+        launches += k_stream + k_chunk
+
+        if not (k_stream == k_chunk == F - 1):
+            raise AssertionError(f"B = {B}: {k_stream} / {k_chunk} "
+                                 f"hamming_top2 launches for {F - 1} steps")
+        if not (np.isfinite(traj).all() and np.array_equal(traj, traj_c)
+                and torch.equal(stream.grids, chunked.grids)):
+            raise AssertionError(f"B = {B}: process_chunk differs from "
+                                 f"process, max |dT| "
+                                 f"{np.abs(traj - traj_c).max()}")
+        ates = _lane_ates(traj, gt)
+        jax = JAX_BATCH_ATE_M[:min(B, len(JAX_BATCH_ATE_M))]
+        if not (max(ates) < 0.01
+                and all(a <= 1.5 * j for a, j in zip(ates, jax))):
+            raise AssertionError(f"B = {B}: lane ATEs {ates} (JAX lanes 0-3 "
+                                 f"{JAX_BATCH_ATE_M})")
+        print(f"phase 9: BatchVisualOdometry B = {B}: {F} frames of {B} "
+              f"sequences, {B * (F - 1) / s_stream:.2f} frame-tracks/s stream, "
+              f"{B * (F - 1) / s_chunk:.2f} chunked ({half} + {half}; == "
+              f"stream bit for bit), {1e3 * s_stream / F:.0f} ms per batched "
+              f"step; {k_stream} kernel launches per run (1 per step); "
+              f"{n_k} CUDA kernels in a profiled step, {dev_ms:.1f} ms of "
+              f"device time in {wall * 1e3:.0f} ms (busy "
+              f"{dev_ms / 1e3 / wall:.1%}); "
+              f"peak {peak:.2f} GiB; lane ATE max {max(ates) * 100:.3f} cm, "
+              f"lanes 0-{len(jax) - 1} "
+              f"{', '.join(f'{a * 100:.3f}' for a in ates[:len(jax)])} cm (JAX "
+              f"{', '.join(f'{j * 100:.3f}' for j in jax)}; ratio up to "
+              f"{max(a / j for a, j in zip(ates, jax)):.2f}) [{card}]",
+              flush=True)
+    # the pyramid resize and the IC angle run once per lane (module
+    # docstrings of ops/pyramid.py and ops/orb.py): ~90 kernels per extra
+    # lane on an H100.  A further per-lane loop would pass the ratio at
+    # B = 16 but not the limit per lane.
+    per_lane = (kernels[N_BATCH] - kernels[1]) / (N_BATCH - 1)
+    if kernels[N_BATCH] > 1.2 * kernels[1] or per_lane > MAX_KERNELS_PER_LANE:
+        raise AssertionError(f"a step at B = {N_BATCH} runs {kernels[N_BATCH]} "
+                             f"CUDA kernels, B = 1 {kernels[1]} ({per_lane:.1f} "
+                             f"per extra lane, limit {MAX_KERNELS_PER_LANE}): "
+                             f"not batched")
+    print(f"phase 9: CUDA kernels per step {kernels[1]} at B = 1, "
+          f"{kernels[N_BATCH]} at B = {N_BATCH}: "
+          f"{kernels[N_BATCH] / kernels[1]:.3f}x (limit 1.2x), {per_lane:.1f} "
+          f"per extra lane (limit {MAX_KERNELS_PER_LANE}) [{card}]", flush=True)
+
+    # lanes 0-3 of a B = 16 run against the unbatched chain, same draws
+    H, S = cfg.ransac.n_hypotheses, cfg.ransac.sample_size
+    rng = np.random.default_rng(90)
+    draws = torch.from_numpy(rng.integers(0, 100, (N_BATCH, F - 1, H, S))).to(dev)
+    imgs_d, deps_d = torch.from_numpy(imgs).to(dev), torch.from_numpy(deps).to(dev)
+    bvo = BatchVisualOdometry(cfg, N_BATCH, dev)
+    batched_desc = []
+    for f in range(F):
+        bvo.process(imgs_d[:, f], deps_d[:, f],
+                    draws=None if f == 0 else draws[:, f - 1])
+        batched_desc.append(bvo.prev.feat.desc[:4])
+    traj = bvo.trajectories()
+    dT, bits = 0.0, 0
+    for b in range(4):
+        grid = init_grid_thresholds(cfg.extractor, dev)
+        frame, grid = make_frame(imgs_d[b, 0], deps_d[b, 0], cfg, grid)
+        bits += int((unpack_bits(frame.feat.desc)
+                     != unpack_bits(batched_desc[0][b])).sum())
+        for f in range(1, F):
+            frame, grid, res = odometry.track_frame(
+                frame, imgs_d[b, f], deps_d[b, f], grid, None, cfg,
+                draws=draws[b, f - 1])
+            bits += int((unpack_bits(frame.feat.desc)
+                         != unpack_bits(batched_desc[f][b])).sum())
+            dT = max(dT, float(np.abs(res.T_cw2.cpu().numpy()
+                                      - traj[f - 1, b]).max()))
+        if not torch.equal(grid, bvo.grids[b]):
+            raise AssertionError(f"lane {b}: threshold grid differs from the "
+                                 f"unbatched chain's")
+    if dT > 1e-4:
+        raise AssertionError(f"lanes 0-3 differ from the unbatched chain by "
+                             f"{dT} on T ({bits} descriptor bits differ)")
+    print(f"phase 9: B = {N_BATCH} with injected draws, lanes 0-3 against "
+          f"the unbatched track_frame chain over {F} frames: max |dT| {dT:.2e} "
+          f"(tolerance 1e-4), grids equal, {bits} of "
+          f"{4 * F * cfg.extractor.max_keypoints * 256} descriptor bits "
+          f"differ [{card}]", flush=True)
+    return launches
+
+
+def _phase9c_viewers(dev, card, walk, ate_device):
+    """The CLI with --render-map and --viewer 0 over the walk's 64 PNGs."""
+    import urllib.request
+
+    from aslam_tpu_torch import main as cli
+    from aslam_tpu_torch.profile_slam import bench_config3
+    from aslam_tpu_torch.utils import dataset, trajectory
+
+    cfg = bench_config3(loop_closing=True)
+    cli.CAMERAS["bench"] = cfg.camera
+    imgs, deps, gt = walk
+    n = len(imgs)
+    gt_c = trajectory.camera_centers(gt)
+    with tempfile.TemporaryDirectory(prefix="aslam_smoke_") as tmp:
+        root = os.path.join(tmp, "walk")
+        dataset.write_tum_sequence(root, imgs, deps, [0.033 * i for i in range(n)])
+        out = os.path.join(tmp, "device")
+        metrics, slam, k, seconds, _ = _cli(
+            root, out, cfg, "--mode", "slam+gicp", "--engine", "device",
+            "--chunk", str(n // 2), "--render-map", "--viewer", "0")
+        viewer = slam.viewer
+        try:
+            page = urllib.request.urlopen(viewer.url, timeout=10).read()
+            state = json.loads(urllib.request.urlopen(
+                viewer.url + "state", timeout=10).read())
+        finally:
+            viewer.stop()
+        png = os.path.getsize(os.path.join(out, "map.png"))
+        ate = trajectory.ate_rmse(
+            _file_centers("viewer", out + "/CameraTrajectory.txt", n), gt_c)
+    if not (png > 5000 and len(state["traj"]) == n and len(state["kfs"]) >= 4
+            and len(state["landmarks"]) > 0 and b"live map" in page
+            and k == n - 1):
+        raise AssertionError(f"--render-map / --viewer: map.png {png} bytes, "
+                             f"{len(state['traj'])} trajectory rows, "
+                             f"{len(state['kfs'])} keyframes, {k} launches")
+    if ate != ate_device:
+        raise AssertionError(f"--render-map / --viewer: ATE {ate} differs from "
+                             f"the same mode without them, {ate_device}")
+    _gate_slam_ate("main --render-map --viewer 0", ate, ate,
+                   JAX_CLI_ATE_M["device"])
+    print(f"phase 9: main --mode slam+gicp --engine device --chunk {n // 2} "
+          f"--render-map --viewer 0: map.png {png / 1024:.0f} KiB; one GET of "
+          f"the state: {len(state['kfs'])} keyframes, {len(state['landmarks'])} "
+          f"landmarks, {len(state['traj'])} trajectory rows, HUD "
+          f"{state['stats']}; ATE {ate * 100:.3f} cm "
+          f"(== phase 7); "
+          f"{_cli_line(metrics, k, seconds, n)} [{card}]", flush=True)
+    return k
+
+
+def phase9_batch(dev, card, kernel, walk, ate_device):
+    """Batched VO, its kernel, and the viewers -> kernel launches."""
+    from aslam_tpu_torch.config import CameraModel, SystemConfig
+
+    cam = CameraModel(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640,
+                      height=480)
+    _phase9a_kernel(dev, card, kernel)
+    launches = _phase9b_batch_vo(dev, card, SystemConfig(camera=cam))
+    return launches + _phase9c_viewers(dev, card, walk, ate_device)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -1273,18 +1609,21 @@ def main():
     launches += phase6_loop_closing(dev, card, walk)
     print(f"chip_smoke: phases 1-6 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
-    launches += phase7_host_shell(dev, card, walk)
+    k, ate_device = phase7_host_shell(dev, card, walk)
+    launches += k
     print(f"chip_smoke: phases 1-7 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     launches += phase8_families(dev, card, vo_frames, walk)
     print(f"chip_smoke: phases 1-8 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    launches += phase9_batch(dev, card, kernel, walk, ate_device)
+    print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -27,10 +27,17 @@ MODE is one of
               x descriptor pairs of `chip_smoke.py` phase 8(b) (DOG+SIFT,
               HARRIS+FREAK, STAR+BRIEF, HESSIAN+LATCH) -> JAX_FAMILY_ATE_M;
   device-gftt-latch  `device` with --detector GFTT --descriptor LATCH, the
-              CLI of phase 8(c) -> JAX_CLI_FAMILY_ATE_M (raw, rebuilt).
-The first three and `families` take the frames as uint8 / uint16, the rest
-as the TUM loader hands them over (float32 gray, float32 metres).  All at full width
-(640x480, 1024 keypoints), seed 0.  Each mode takes a few minutes on a CPU.
+              CLI of phase 8(c) -> JAX_CLI_FAMILY_ATE_M (raw, rebuilt);
+  batch [SEED]  `BatchVisualOdometry` (B = 4, PRNG seed SEED, default 0)
+              over the 16 frames of `make_sequence(n_frames=16,
+              n_points=1500, seed=50 + b)`, b = 0..3, `process` per frame:
+              the lanes 0-3 of `chip_smoke.py` phase 9(b) -> JAX_BATCH_ATE_M
+              (one ATE per lane; other seeds show the spread of the RANSAC
+              draws).
+The first three, `families` and `batch` take the frames as uint8 / uint16,
+the rest as the TUM loader hands them over (float32 gray, float32 metres).
+All at full width (640x480, 1024 keypoints), seed 0.  Each mode takes a few
+minutes on a CPU.
 """
 
 import dataclasses
@@ -112,6 +119,25 @@ def families():
               "min matches", n_matches,
               "min inliers", min(s["n_inliers"] for s in vo.stats),
               f"{time.time() - t0:.0f} s", flush=True)
+
+
+def batch():
+    from aslam_tpu.models.batch_vo import BatchVisualOdometry
+
+    B, F = 4, 16
+    seqs = [synthetic.make_sequence(n_frames=F, n_points=1500, cam=CAM,
+                                    seed=50 + b) for b in range(B)]
+    frames = [sensor(s[0], s[1]) for s in seqs]
+    seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
+    bvo = BatchVisualOdometry(SystemConfig(camera=CAM), batch=B, seed=seed)
+    for f in range(F):
+        bvo.process(np.stack([fr[0][f] for fr in frames]),
+                    np.stack([fr[1][f] for fr in frames]))
+    traj = bvo.trajectories()                             # [F-1, B, 4, 4]
+    ates = [trajectory.ate_rmse(
+        centers(np.concatenate([np.eye(4)[None], traj[:, b]])),
+        centers(seqs[b][2])) for b in range(B)]
+    print(f"batch seed {seed} lanes 0-3", repr(ates), flush=True)
 
 
 def bench_config(loop, gicp):
@@ -202,6 +228,6 @@ if __name__ == "__main__":
     t0 = time.time()
     mode = sys.argv[1]
     {"ricp": ricp, "vo-walk": vo_walk, "host": host,
-     "families": families}.get(
+     "families": families, "batch": batch}.get(
         mode, lambda: slam(mode))()
     print(f"{time.time() - t0:.0f} s")

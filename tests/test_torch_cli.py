@@ -3,9 +3,10 @@ over a TUM-layout directory fabricated from the synthetic renderer (the
 recipe of tests/test_multisequence_cli.py, PNGs written by the port's own
 `write_tum_sequence`): every mode and engine at `small_config()` shapes
 (`main(..., base_config=)`), the other detector and descriptor families, the
-output files, the flags that wait for modules not ported yet and the
-misspelt family names, and the refusal to run without a CUDA device unless
-`--device cpu` is given.
+output files, `--render-map` and `--viewer` on both engines, the flags that
+stop with a named error (misspelt family names, the map's flags in `--mode
+vo`), and the refusal to run without a CUDA device unless `--device cpu` is
+given.
 """
 
 import json
@@ -147,14 +148,42 @@ def test_cli_runs_every_family(tum, tmp_path, mode, det, des):
                               r"'FAST', 'GFTT', 'HARRIS', 'HESSIAN', 'STAR'\]"),
     (["--descriptor", "ORBB"], r"unknown descriptor 'ORBB'; have \['BRIEF', "
                                r"'FREAK', 'LATCH', 'ORB', 'SIFT'\]"),
-    (["--render-map"], "utils/viewer.py"),
-    (["--viewer", "0"], "utils/webviewer.py"),
+    (["--mode", "vo", "--render-map"], "utils/viewer.py"),
+    (["--mode", "vo", "--viewer", "0"], "utils/webviewer.py"),
 ])
 def test_cli_flags_that_wait_stop_with_a_named_error(tum, tmp_path, flags,
                                                      names):
     with pytest.raises(SystemExit, match=names):
         _run(tum, tmp_path, *flags)
     assert not (tmp_path / "CameraTrajectory.txt").exists()
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_cli_render_map_and_viewer(tum, tmp_path, engine):
+    """--render-map writes map.png and --viewer 0 serves the map and the
+    whole trajectory after the run, on either engine."""
+    import urllib.request
+
+    cfg, root, _ = tum
+    flags = ["--chunk", "4"] if engine == "device" else []
+    _, slam = cli.run(["--dataset", root, "--camera", "test", "--device",
+                       "cpu", "--out-dir", str(tmp_path), "--mode", "slam",
+                       "--engine", engine, "--render-map", "--viewer", "0",
+                       "--viewer-every", "3", *flags], base_config=cfg)
+    viewer = slam.viewer
+    try:
+        st = json.loads(urllib.request.urlopen(viewer.url + "state",
+                                               timeout=10).read())
+    finally:
+        viewer.stop()
+    assert os.path.getsize(tmp_path / "map.png") > 5000
+    assert len(st["traj"]) == N and len(st["kfs"]) >= 2
+    assert len(st["landmarks"]) > 50 and st["stats"]["frame"] == N - 1
+    assert st["stats"]["keyframes"] == len(st["kfs"])
+    assert st["seq"] >= 3                 # frames 0 (or 3), 6, 9 and the end
+    # the served trajectory is the camera centres the run tracked
+    assert trajectory.ate_rmse(np.asarray(st["traj"]),
+                               trajectory.camera_centers(tum[2])) < 0.03
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

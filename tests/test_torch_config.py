@@ -24,7 +24,9 @@ SLAM_MODULES = [f"aslam_tpu_torch.{m}" for m in (
     "utils.synthetic_hard",
     # the host shell: CLI, host engine, checkpoints, loader
     "main", "models.system", "utils.checkpoint", "utils.dataset",
-    "utils.metrics", "utils.pointcloud", "native.loader", "native.build")]
+    "utils.metrics", "utils.pointcloud", "native.loader", "native.build",
+    # batched VO, the viewers, the CPU baseline
+    "models.batch_vo", "utils.viewer", "utils.webviewer", "baselines.refcpu")]
 
 
 def _fields(cls):

@@ -122,6 +122,96 @@ def test_hamming_top2_is_capturable_in_a_cuda_graph():
                 assert torch.equal(x, y), seed
 
 
+@pytest.mark.parametrize("b,n,m", [(1, 1024, 1024), (16, 1024, 1024),
+                                   (3, 257, 513), (5, 7, 2), (2, 64, 6145),
+                                   (4, 1000, 1023)])
+def test_hamming_top2_batched_kernel_equals_plain_and_per_lane(b, n, m):
+    """The batch axis: [B,N,8] x [B,M,8] in one launch equals the batched
+    plain version and B unbatched launches exactly, with ties and masks, a
+    lane with no valid target and a lane with no valid query."""
+    dev = _card()
+    lanes = [_inputs(n, m, seed, dev, ties=seed % 2 == 0) for seed in range(b)]
+    if b > 2:
+        lanes[1][3] = torch.zeros_like(lanes[1][3])
+        lanes[2][1] = torch.zeros_like(lanes[2][1])
+    args = [torch.stack([lane[k] for lane in lanes]) for k in range(4)]
+    before = hamming_top2.launches
+    out = hamming_top2(*args)
+    assert hamming_top2.launches == before + 1
+    single = [hamming_top2(*lane) for lane in lanes]
+    ref = hamming_top2_plain(*args)
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert out[k].shape == (b, n)
+        assert torch.equal(out[k], ref[k]), k
+        assert torch.equal(out[k], torch.stack([x[k] for x in single])), k
+
+
+def test_hamming_top2_rejects_bad_batches():
+    dev = _card()
+    a, va, b, vb = (torch.stack([x, x]) for x in _inputs(16, 16, 0, dev))
+    with pytest.raises(ValueError, match="batch"):
+        hamming_top2(a, va, b[0], vb[0])              # a batch against one set
+    with pytest.raises(ValueError):
+        hamming_top2(a, va, b[:1], vb[:1])            # lane counts differ
+    with pytest.raises(ValueError):
+        hamming_top2(a, va[:, :8], b, vb)
+    with pytest.raises(ValueError, match="batch"):
+        hamming_top2(a[None], va[None], b[None], vb[None])
+
+
+def test_batch_vo_on_card_equals_unbatched_chain():
+    """`BatchVisualOdometry` on the card at small shape: each lane equal to
+    the unbatched `track_frame` chain with the same draws (poses to 1e-5,
+    grids exactly), one kernel launch per batched step, and
+    `process_chunk` equal to `process` bit for bit."""
+    from aslam_tpu_torch.config import small_config
+    from aslam_tpu_torch.models import odometry
+    from aslam_tpu_torch.models.batch_vo import BatchVisualOdometry
+    from aslam_tpu_torch.models.extractor import init_grid_thresholds
+    from aslam_tpu_torch.models.frame import make_frame
+    from aslam_tpu_torch.utils import synthetic
+
+    dev = _card()
+    cfg = small_config()
+    cam = cfg.camera
+    B, F = 3, 5
+    seqs = [synthetic.make_sequence(n_frames=F, n_points=400, cam=cam,
+                                    seed=10 + b) for b in range(B)]
+    imgs = torch.from_numpy(np.stack([np.clip(s[0], 0, 255).astype(np.uint8)
+                                      for s in seqs])).to(dev)
+    deps = torch.from_numpy(np.stack([
+        np.clip(s[1] / cam.depth_factor, 0, 65535).astype(np.uint16)
+        for s in seqs])).to(dev)
+    H, S = cfg.ransac.n_hypotheses, cfg.ransac.sample_size
+    draws = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 40, (B, F - 1, H, S))).to(dev)
+    bvo = BatchVisualOdometry(cfg, B, dev)
+    before = hamming_top2.launches
+    for f in range(F):
+        bvo.process(imgs[:, f], deps[:, f],
+                    draws=None if f == 0 else draws[:, f - 1])
+    assert hamming_top2.launches == before + F - 1
+    traj = bvo.trajectories()
+    for b in range(B):
+        grid = init_grid_thresholds(cfg.extractor, dev)
+        frame, grid = make_frame(imgs[b, 0], deps[b, 0], cfg, grid)
+        for f in range(1, F):
+            frame, grid, res = odometry.track_frame(
+                frame, imgs[b, f], deps[b, f], grid, None, cfg,
+                draws=draws[b, f - 1])
+            np.testing.assert_allclose(res.T_cw2.cpu().numpy(), traj[f - 1, b],
+                                       rtol=0, atol=1e-5)
+        assert torch.equal(grid, bvo.grids[b])
+    stream = BatchVisualOdometry(cfg, B, dev, seed=3)
+    for f in range(F):
+        stream.process(imgs[:, f], deps[:, f])
+    chunked = BatchVisualOdometry(cfg, B, dev, seed=3)
+    chunked.process_chunk(imgs[:, :2], deps[:, :2])
+    chunked.process_chunk(imgs[:, 2:], deps[:, 2:])
+    assert np.array_equal(stream.trajectories(), chunked.trajectories())
+
+
 def test_mma_peak_probe_reads_about_the_rate_the_bound_divides_by():
     """`hamming_top2_bound` divides by a measured 1-bit tensor-core rate: the
     probe that measured it reads no more than a tenth above the constant on
