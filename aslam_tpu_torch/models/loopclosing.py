@@ -20,7 +20,10 @@ counted in `device.read_host.count`:
     read of the verification records;
   * per vocabulary (re)training one read of the sampled descriptors;
   * per relocalization one read of the scores, then one per candidate
-    tried.
+    tried;
+  * per step of the sharded post-loop GBA (`post_gba_method=
+    "sharded_gn_cg"`) two reads, the covisibility counts and the keyframe
+    validity its placement is computed from (`parallel/partition.py`).
 
 The RANSAC of the verification draws from a generator on the map's device;
 `verify_loop` and `verify_and_gate` take the raw draws optionally, as
@@ -36,6 +39,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aslam_tpu_torch.config import SystemConfig
 from aslam_tpu_torch.device import to_host
@@ -45,6 +49,9 @@ from aslam_tpu_torch.ops import global_ba as gba
 from aslam_tpu_torch.ops.hamming import INVALID_DIST, masked_distance_matrix
 from aslam_tpu_torch.ops.lba import map_chain
 from aslam_tpu_torch.ops.select import topk_stable
+from aslam_tpu_torch.parallel import launch
+from aslam_tpu_torch.parallel.mesh import make_mesh
+from aslam_tpu_torch.parallel.partition import partitioned_gn_cg_step
 from aslam_tpu_torch.utils import camera
 from aslam_tpu_torch.utils.se3 import T_inv
 
@@ -408,6 +415,8 @@ class LoopClosing:
         # verify-event budget per batched sync (None = unlimited)
         self._sync_corrections_left: int | None = None
         self._gba_pending = False
+        # the mesh of the sharded post-loop GBA, made at its first use
+        self._mesh = None
         # RANSAC draws for the next verifications, in order (tests inject
         # the reference's); empty = draw from the generator
         self.verify_draws: list[torch.Tensor] = []
@@ -636,10 +645,18 @@ class LoopClosing:
         cfg = self.cfg
         method = cfg.loop.post_gba_method
         if method == "sharded_gn_cg":
-            raise NotImplementedError(
-                "post_gba_method='sharded_gn_cg' (the distributed joint "
-                "GN-CG over a device mesh) is not ported yet: use 'gn_cg' "
-                "or 'sweep'")
+            # the config-5 path: the covisibility-placed distributed joint
+            # GN-CG over the process's world, run by the live session.  No
+            # chain regularizer, as in the reference: the pose-graph-
+            # corrected poses are the linearization point and the steps
+            # are few.  Strong relative damping (lam = 0.3): a post-loop
+            # map is far from the reprojection optimum, where a lightly
+            # damped GN step overshoots.
+            mesh = self._gba_mesh(m.kf_T_cw.device)
+            for _ in range(max(cfg.loop.post_gba_iters // 4, 1)):
+                m, _ = partitioned_gn_cg_step(m, cfg.camera, cfg.ba, mesh,
+                                              lam=0.3)
+            return m
         chain = None
         if cfg.ba.chain_prior_weight > 0 and method == "gn_cg":
             chain = map_chain(m.kf_T_cw, m.kf_valid, m.kf_id,
@@ -649,6 +666,19 @@ class LoopClosing:
             robust_iters=max(cfg.loop.post_gba_iters // 2, 1), method=method,
             chain=chain)
         return m
+
+    def _gba_mesh(self, device: torch.device):
+        """The mesh of the sharded post-loop GBA, made once: dp = the
+        world, lm = 1 (the reference's mesh over the process's devices).
+        Where no process group is initialized, a one-rank group on the
+        map's device (NCCL for a card, gloo for the CPU): one device is a
+        1x1 mesh."""
+        if self._mesh is None:
+            if not dist.is_initialized():
+                launch.initialize_local(device)
+            self._mesh = make_mesh(dp=dist.get_world_size(), lm=1,
+                                   device=device)
+        return self._mesh
 
     def relocalize(self, m: ms.MapState, frame, n_candidates: int = 3):
         """Re-acquire the pose of a lost frame (FrameData) against the

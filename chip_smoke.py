@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths once on a CUDA card: config-1 VO, config-2
 SLAM, config-3 (GICP escalation) VO and SLAM, loop closing, the host shell
 (the CLI from a TUM directory on disk, both engines, sessions), the other
-detector and descriptor families, batched VO and the viewers.
+detector and descriptor families, batched VO and the viewers, and
+distributed BA over `torch.distributed`.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -103,7 +104,20 @@ Phases, one printed line each (or more, for phases 3 and 4):
      within 1e-4 on T, with the descriptor bits that differ; (c) the CLI
      `--mode slam+gicp --engine device --chunk 32 --render-map --viewer 0`
      over the walk's 64 PNGs: a non-empty map.png, one GET of the viewer's
-     state with keyframes and 64 trajectory rows, and phase 7(b)'s ATE.
+     state with keyframes and 64 trajectory rows, and phase 7(b)'s ATE;
+ 10. distributed BA (`aslam_tpu_torch/parallel/`) with the torch version:
+     on a one-rank NCCL group, (a) `sharded_local_ba` against `local_ba` at
+     `bench_config2()`'s full local-BA window (64 cameras, 2048 points,
+     8192 edges, seeded noise) to 1e-3, equal edges, a bit-identical second
+     run, ms per call of both in turns; (b) phase 6(b)'s looped map through
+     `LoopClosing` with `post_gba_method="sharded_gn_cg"`, twice: phase
+     6(b)'s gates, the two runs bit-identical, `map_chi2` and the GBA's ms
+     beside phase 6(b)'s `gn_cg` ones; on the map as built,
+     `sharded_global_ba` against `ba_sweep` x 4 and `partitioned_gn_cg_step`
+     against `gn_cg_step` to 2e-3, with ms per call; (c) two processes on
+     the card in a gloo group over CUDA tensors (NCCL takes one rank per
+     card): `dryrun_multichip` in layouts 1x2 and 2x1, its parity lines
+     gated as in the reference.  Phase 10 launches no kernel.
 Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
@@ -117,6 +131,7 @@ import io
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -674,10 +689,8 @@ def phase5_config3(dev, card, vo_frames, walk):
 
 
 def phase6_loop_closing(dev, card, walk):
-    from aslam_tpu_torch.device import read_host
-    from aslam_tpu_torch.models.loopclosing import LoopClosing
-    from aslam_tpu_torch.ops import global_ba
-    from aslam_tpu_torch.profile_slam import bench_config2, looped_map
+    """-> (kernel launches, phase 6(b)'s looped-map run)."""
+    from aslam_tpu_torch.profile_slam import bench_config2
 
     cfg = bench_config2(loop_closing=True)
 
@@ -706,16 +719,54 @@ def phase6_loop_closing(dev, card, walk):
           flush=True)
 
     # (b) a loop to close, at full capacities
-    m, T_true, T_est, drift = looped_map(cfg, dev, seed=0, n_kfs=N_LOOP_KFS,
-                                         n_pts=N_LOOP_PTS)
+    loop6 = _run_looped_map(cfg, dev)
+    m, lc, times, chi2 = (loop6[k] for k in ("m", "lc", "times", "chi2"))
+    q, before, after = _gate_loop(loop6, "loop closing")
+    quiet = [t for t, closed in times[1:] if not closed]
+    closing = [t for t, closed in times if closed]
+    print(f"phase 6: looped map ({N_LOOP_KFS} KFs, up to {loop6['n_feat']} "
+          f"features each, {int(m.lm_valid.sum())} landmarks; M = "
+          f"{m.kf_lm.shape[1]}, L = {m.lm_pos.shape[0]}, K = "
+          f"{m.kf_valid.shape[0]}): loops "
+          f"{lc.loops}, drift at KF {q} {before * 100:.2f} -> "
+          f"{after * 100:.2f} cm, map_chi2 around the post-loop GBA "
+          f"{chi2[0]:.4g} -> {chi2[1]:.4g} "
+          f"({1e3 * loop6['gba_s'][0]:.1f} ms); "
+          f"{loop6['reads']} host reads in "
+          f"{len(times)} syncs; ms per sync without a correction "
+          f"{1e3 * sum(quiet) / max(len(quiet), 1):.1f}, with one "
+          f"{1e3 * sum(closing) / max(len(closing), 1):.1f} [{card}]",
+          flush=True)
+    return counts["launches"], loop6
+
+
+def _run_looped_map(cfg, dev):
+    """The looped map at full capacities (24 keyframes out and back with
+    drifted poses) through `LoopClosing.process_keyframes_batch` in windows
+    of four, as the map stood when each window's last keyframe came in,
+    with `map_chi2` and the synchronised time around each post-loop GBA ->
+    dict of the final map, the LoopClosing, the true and drifted poses, the
+    (seconds, closed) of each sync, the chi2 pairs, the GBA seconds and the
+    host reads."""
+    from aslam_tpu_torch.device import read_host
+    from aslam_tpu_torch.models.loopclosing import LoopClosing
+    from aslam_tpu_torch.ops import global_ba
+    from aslam_tpu_torch.profile_slam import looped_map
+
+    m, T_true, T_est, _ = looped_map(cfg, dev, seed=0, n_kfs=N_LOOP_KFS,
+                                     n_pts=N_LOOP_PTS)
     n_feat = int(m.kf_kp_valid.sum(1).max())
     lc = LoopClosing(cfg, dev)
-    chi2 = []
+    chi2, gba_s = [], []
     post_gba = lc._post_loop_gba
 
     def measured_gba(mm):
         chi2.append(float(global_ba.map_chi2(mm, cfg.camera, cfg.ba)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = post_gba(mm)
+        torch.cuda.synchronize()
+        gba_s.append(time.perf_counter() - t0)
         chi2.append(float(global_ba.map_chi2(out, cfg.camera, cfg.ba)))
         return out
 
@@ -735,33 +786,30 @@ def phase6_loop_closing(dev, card, walk):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0, len(lc.loops) > n_loops))
         m = out._replace(kf_valid=m.kf_valid)
+    return dict(m=m, lc=lc, T_true=T_true, T_est=T_est, times=times,
+                chi2=chi2, gba_s=gba_s, reads=read_host.count, n_feat=n_feat)
+
+
+def _gate_loop(run, what):
+    """Phase 6(b)'s gates on a looped-map run: a finite map, a loop between
+    the return leg and the outbound leg, the drift at the closing keyframe
+    cut by >= 20% -> (closing slot, drift before, after) in metres."""
+    m, lc, T_true, T_est = (run[k] for k in ("m", "lc", "T_true", "T_est"))
     if not torch.isfinite(m.kf_T_cw).all() or not torch.isfinite(m.lm_pos).all():
-        raise AssertionError("loop closing: non-finite map")
+        raise AssertionError(f"{what}: non-finite map")
     if not lc.loops:
-        raise AssertionError("loop closing: no loop closed on the looped map")
+        raise AssertionError(f"{what}: no loop closed on the looped map")
     q, c = lc.loops[0]
     if not (q >= N_LOOP_KFS // 2 and c < N_LOOP_KFS // 2):
-        raise AssertionError(f"loop closing: loop {q} <-> {c} does not join "
+        raise AssertionError(f"{what}: loop {q} <-> {c} does not join "
                              f"the return leg to the outbound leg")
     T_after = m.kf_T_cw.cpu().numpy()
     before = float(np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3]))
     after = float(np.linalg.norm(T_after[q][:3, 3] - T_true[q][:3, 3]))
     if not after < 0.8 * before:
-        raise AssertionError(f"loop closing: drift at KF {q} {before:.4f} -> "
+        raise AssertionError(f"{what}: drift at KF {q} {before:.4f} -> "
                              f"{after:.4f} m")
-    quiet = [t for t, closed in times[1:] if not closed]
-    closing = [t for t, closed in times if closed]
-    print(f"phase 6: looped map ({N_LOOP_KFS} KFs, up to {n_feat} features "
-          f"each, {int(m.lm_valid.sum())} landmarks; M = "
-          f"{m.kf_lm.shape[1]}, L = {m.lm_pos.shape[0]}, K = {K}): loops "
-          f"{lc.loops}, drift at KF {q} {before * 100:.2f} -> "
-          f"{after * 100:.2f} cm, map_chi2 around the post-loop GBA "
-          f"{chi2[0]:.4g} -> {chi2[1]:.4g}; {read_host.count} host reads in "
-          f"{len(times)} syncs; ms per sync without a correction "
-          f"{1e3 * sum(quiet) / max(len(quiet), 1):.1f}, with one "
-          f"{1e3 * sum(closing) / max(len(closing), 1):.1f} [{card}]",
-          flush=True)
-    return counts["launches"]
+    return q, before, after
 
 
 def _cli(root, out, cfg, *flags):
@@ -1588,6 +1636,259 @@ def phase9_batch(dev, card, kernel, walk, ate_device):
     return launches + _phase9c_viewers(dev, card, walk, ate_device)
 
 
+def _lba_window(cfg, dev, seed=0):
+    """A seeded noisy local-BA problem at the window's full capacities of
+    `cfg.ba` (max_fixed_cams fixed and max_window_cams free cameras,
+    max_window_points points, max_edges edges), built as
+    tests/test_torch_lba.py::make_problem builds one: cameras 5 cm apart
+    along a track, fixed and free in turn (a window's fixed cameras are the
+    covisible keyframes around it), each point seen by the E / L cameras
+    nearest it with 0.3 px of noise, the free poses (1 cm, 10 mrad) and the
+    points (2 cm) perturbed.  As there, each point keeps two stereo edges (a
+    point left with one moves by millimetres under float32 reordering
+    alone): a fifth of the free cameras' other edges are mono.  No
+    outliers: with them the fixed-lam sharded schedule and the monotone
+    `local_ba` prune different edges."""
+    from aslam_tpu_torch.ops.lba import BAProblem
+    from aslam_tpu_torch.utils.synthetic import _np_se3_exp
+
+    ba, cam = cfg.ba, cfg.camera
+    if ba.max_fixed_cams != ba.max_window_cams:
+        raise ValueError("the window alternates fixed and free cameras")
+    C = 2 * ba.max_window_cams
+    L, E = ba.max_window_points, ba.max_edges
+    rng = np.random.default_rng(seed)
+    xs = 0.05 * np.arange(C)
+    fixed = np.arange(C) % 2 == 0
+    T_true = np.stack([_np_se3_exp(np.concatenate(
+        [[-xs[c], 0.0, 0.0], rng.normal(0, 0.01, 3)])) for c in range(C)])
+    pts = np.stack([rng.uniform(xs[0] - 0.3, xs[-1] + 0.3, L),
+                    rng.uniform(-0.8, 0.8, L), rng.uniform(2.0, 4.0, L)],
+                   -1).astype(np.float32)
+    e_lm = np.repeat(np.arange(L), E // L)
+    e_cam = np.argsort(np.abs(pts[:, None, 0] - xs[None, :]), axis=1,
+                       kind="stable")[:, :E // L].reshape(-1)
+    pc = np.einsum("eij,ej->ei", T_true[e_cam, :3, :3], pts[e_lm]) \
+        + T_true[e_cam, :3, 3]
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1) \
+        + rng.normal(0, 0.3, (E, 2))
+    nearest = np.tile(np.arange(E // L), L)       # rank of e_cam for e_lm
+    mono = (rng.random(E) < 0.2) & ~fixed[e_cam] & (nearest >= 2)
+    cam_T = T_true.copy()
+    for c in np.nonzero(~fixed)[0]:
+        cam_T[c] = _np_se3_exp(rng.normal(0, 0.01, 6)) @ T_true[c]
+    points = pts + rng.normal(0, 0.02, pts.shape)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    return BAProblem(
+        cam_T=put(cam_T, np.float32), cam_fixed=put(fixed, bool),
+        cam_valid=put(np.ones(C), bool), points=put(points, np.float32),
+        point_valid=put(np.ones(L), bool), e_cam=put(e_cam, np.int32),
+        e_lm=put(e_lm, np.int32), e_uv=put(uv, np.float32),
+        e_ur=put(np.where(mono, -1.0, uv[:, 0] - cam.bf / pc[:, 2]),
+                 np.float32),
+        e_z=put(np.where(mono, 0.0, pc[:, 2]), np.float32),
+        e_valid=put(np.ones(E), bool))
+
+
+def _phase10a_local_ba(dev, card, mesh):
+    """`sharded_local_ba` on the world-1 mesh against `local_ba` at the
+    local-BA window's full capacities of `bench_config2()`."""
+    from aslam_tpu_torch.ops import lba
+    from aslam_tpu_torch.parallel.sharded_ba import (pad_problem,
+                                                     sharded_local_ba)
+    from aslam_tpu_torch.profile_slam import bench_config2
+
+    cfg = bench_config2()
+    prob = _lba_window(cfg, dev)
+    cam, ba = cfg.camera, cfg.ba
+    _, _, _, _, chi2_e, active = lba.edge_terms(prob, cam, ba, robust=False)
+    before = float(torch.sum(torch.where(active, chi2_e, 0.0)))
+    padded = pad_problem(prob, mesh)
+    out, chi2, n_edges = sharded_local_ba(padded, cam, ba, mesh)
+    again = sharded_local_ba(padded, cam, ba, mesh)[0]
+    ref, stats = lba.local_ba(prob, cam, ba)
+    dT = float((out.cam_T - ref.cam_T).abs().max())
+    dX = float((out.points - ref.points).abs().max())
+    same = torch.equal(out.cam_T, again.cam_T) and torch.equal(out.points,
+                                                                again.points)
+    if not (dT <= 1e-3 and dX <= 1e-3 and int(n_edges) == int(stats.n_edges)
+            and same and float(chi2) < before):
+        raise AssertionError(
+            f"sharded_local_ba vs local_ba: max |dT| {dT}, |dX| {dX}, edges "
+            f"{int(n_edges)} vs {int(stats.n_edges)}, second run equal "
+            f"{same}, chi2 {before} -> {float(chi2)}")
+    # ms per call in turns: one device, sharded, sharded, one device
+    ms = {"local_ba": [], "sharded_local_ba": []}
+    for name in ("local_ba", "sharded_local_ba", "sharded_local_ba",
+                 "local_ba"):
+        fn = ((lambda: lba.local_ba(prob, cam, ba)) if name == "local_ba"
+              else (lambda: sharded_local_ba(padded, cam, ba, mesh)))
+        ms[name].append(_events_ms(fn, iters=3))
+    C, L, E = (prob.cam_T.shape[0], prob.points.shape[0],
+               prob.e_cam.shape[0])
+    print(f"phase 10: sharded_local_ba on a world-1 NCCL group ({C} cameras, "
+          f"{L} points, {E} edges): chi2 {before:.4g} -> {float(chi2):.4g} "
+          f"(local_ba {float(stats.chi2):.4g}), {int(n_edges)} edges as "
+          f"local_ba; max |dT| {dT:.2e}, |dX| {dX:.2e} (tolerance 1e-3); a "
+          f"second run bit-identical; ms per call (CUDA events, in turns) "
+          f"local_ba {ms['local_ba'][0]:.1f} / {ms['local_ba'][1]:.1f}, "
+          f"sharded {ms['sharded_local_ba'][0]:.1f} / "
+          f"{ms['sharded_local_ba'][1]:.1f} [{card}]", flush=True)
+
+
+def _phase10b_session(dev, card, mesh, loop6):
+    """The session's sharded post-loop GBA on phase 6(b)'s looped map, run
+    twice, then the global solvers on the world-1 mesh against one
+    device."""
+    import dataclasses
+
+    from aslam_tpu_torch.ops import global_ba
+    from aslam_tpu_torch.parallel.partition import partitioned_gn_cg_step
+    from aslam_tpu_torch.parallel.sharded_global_ba import sharded_global_ba
+    from aslam_tpu_torch.profile_slam import bench_config2, looped_map
+
+    cfg = bench_config2(loop_closing=True)
+    cfg = cfg.replace(loop=dataclasses.replace(
+        cfg.loop, post_gba_method="sharded_gn_cg"))
+    runs = [_run_looped_map(cfg, dev) for _ in range(2)]
+    run = runs[0]
+    q, before, after = _gate_loop(run, "sharded post-loop GBA")
+    m, m2 = runs[0]["m"], runs[1]["m"]
+    if not (torch.equal(m.kf_T_cw, m2.kf_T_cw)
+            and torch.equal(m.lm_pos, m2.lm_pos)):
+        raise AssertionError("sharded post-loop GBA: a second run differs")
+    chi2, gba_ms = run["chi2"], [1e3 * t for r in runs for t in r["gba_s"]]
+    fix_ms = [1e3 * t for r in runs for t, closed in r["times"] if closed]
+    fix6_ms = [1e3 * t for t, closed in loop6["times"] if closed]
+    _, before6, after6 = _gate_loop(loop6, "loop closing")
+    print(f"phase 10: looped map through LoopClosing with post_gba_method="
+          f"sharded_gn_cg: loops {run['lc'].loops}, drift at KF {q} "
+          f"{before * 100:.2f} -> {after * 100:.2f} cm (phase 6 gn_cg "
+          f"{after6 * 100:.2f}); map_chi2 around the post-loop GBA "
+          f"{chi2[0]:.4g} -> {chi2[1]:.4g} (gn_cg {loop6['chi2'][0]:.4g} -> "
+          f"{loop6['chi2'][1]:.4g}); GBA ms "
+          f"{' / '.join(f'{t:.1f}' for t in gba_ms)} "
+          f"against gn_cg {1e3 * loop6['gba_s'][0]:.1f}; ms per sync with "
+          f"the correction {' / '.join(f'{t:.1f}' for t in fix_ms)} against "
+          f"gn_cg {' / '.join(f'{t:.1f}' for t in fix6_ms)}; {run['reads']} host "
+          f"reads (phase 6: {loop6['reads']}); a second run bit-identical "
+          f"[{card}]", flush=True)
+
+    # the global solvers on the looped map as built, against one device
+    m0 = looped_map(cfg, dev, seed=0, n_kfs=N_LOOP_KFS, n_pts=N_LOOP_PTS)[0]
+    cam, ba = cfg.camera, cfg.ba
+    out, _ = sharded_global_ba(m0, cam, ba, mesh, iters=4, robust_iters=2)
+    ref = m0
+    for i in range(4):
+        ref, _ = global_ba.ba_sweep(ref, cam, ba, robust=i < 2)
+    part, st = partitioned_gn_cg_step(m0, cam, ba, mesh)
+    one, st1 = global_ba.gn_cg_step(m0, cam, ba)
+    d = {}
+    for name, a, b in (("sweep", out, ref), ("gn_cg", part, one)):
+        d[name] = max(float((a.kf_T_cw - b.kf_T_cw).abs().max()),
+                      float((a.lm_pos - b.lm_pos).abs().max()))
+    if not (d["sweep"] <= 2e-3 and d["gn_cg"] <= 2e-3
+            and int(st.n_edges) == int(st1.n_edges)):
+        raise AssertionError(f"global solvers on the world-1 mesh vs one "
+                             f"device: {d}, edges {int(st.n_edges)} vs "
+                             f"{int(st1.n_edges)}")
+    ms = {"ba_sweep x4": _events_ms(lambda: [global_ba.ba_sweep(
+              m0, cam, ba, robust=i < 2) for i in range(4)], iters=2),
+          "sharded_global_ba": _events_ms(lambda: sharded_global_ba(
+              m0, cam, ba, mesh, iters=4, robust_iters=2), iters=2),
+          "gn_cg_step": _events_ms(lambda: global_ba.gn_cg_step(
+              m0, cam, ba), iters=2),
+          "partitioned_gn_cg_step": _events_ms(lambda: partitioned_gn_cg_step(
+              m0, cam, ba, mesh), iters=2)}
+    print(f"phase 10: on the looped map ({m0.kf_valid.shape[0]} KF slots, "
+          f"{m0.lm_pos.shape[0]} landmark slots): sharded_global_ba vs "
+          f"ba_sweep x 4 max abs diff {d['sweep']:.2e}, partitioned_gn_cg_step"
+          f" vs gn_cg_step {d['gn_cg']:.2e} (tolerance 2e-3), "
+          f"{int(st.n_edges)} edges; ms per call (CUDA events) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) + f" [{card}]",
+          flush=True)
+
+
+_DRYRUN_RANK = """
+import sys, torch, torch.distributed as dist
+from aslam_tpu_torch.parallel.dryrun import dryrun_multichip
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+try:
+    for dp, lm in ((1, 2), (2, 1)):
+        dryrun_multichip(2, dp=dp, lm=lm, device=torch.device("cuda", 0))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _phase10c_two_ranks(card, timeout_s=180):
+    """`dryrun_multichip` on two ranks on the card (gloo on CUDA tensors;
+    NCCL refuses two ranks on one card), layouts 1x2 and 2x1."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_RANK, str(r), str(port)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(timeout_s - (time.perf_counter() - t0), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs) or len(outs) < 2:
+        raise AssertionError("two-rank dry run failed:\n"
+                             + "\n---\n".join(outs))
+    lines = [ln for ln in outs[0].splitlines()
+             if ln.startswith("dryrun_multichip")]
+    if len(lines) != 4:
+        raise AssertionError("two-rank dry run: expected 4 lines:\n" + outs[0])
+    for ln in lines:
+        print(f"phase 10: 2 ranks on cuda:0 (gloo): {ln} [{card}]", flush=True)
+    print(f"phase 10: the two-rank dry run took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def phase10_parallel(dev, card, loop6):
+    """`parallel/` on the card: (a) the sharded local BA and (b) the
+    session's sharded post-loop GBA and the global solvers on a world-1
+    NCCL group, (c) the dry run on two ranks.  Launches no kernel."""
+    import torch.distributed as dist
+
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.parallel import launch
+    from aslam_tpu_torch.parallel.mesh import make_mesh
+
+    print(f"phase 10: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} card(s) [{card}]", flush=True)
+    launches = hamming_top2.launches
+    launch.initialize_local(dev)
+    try:
+        mesh = make_mesh(1)
+        _phase10a_local_ba(dev, card, mesh)
+        _phase10b_session(dev, card, mesh, loop6)
+    finally:
+        dist.destroy_process_group()
+    _phase10c_two_ranks(card)
+    if hamming_top2.launches != launches:
+        raise AssertionError("phase 10 launched hamming_top2")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -1606,7 +1907,8 @@ def main():
     print(f"chip_smoke: phases 1-4 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     launches += phase5_config3(dev, card, vo_frames, walk)
-    launches += phase6_loop_closing(dev, card, walk)
+    k, loop6 = phase6_loop_closing(dev, card, walk)
+    launches += k
     print(f"chip_smoke: phases 1-6 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     k, ate_device = phase7_host_shell(dev, card, walk)
@@ -1618,6 +1920,9 @@ def main():
           f"[{card}]", flush=True)
     launches += phase9_batch(dev, card, kernel, walk, ate_device)
     print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    phase10_parallel(dev, card, loop6)
+    print(f"chip_smoke: phases 1-10 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
           flush=True)

@@ -26,7 +26,11 @@ SLAM_MODULES = [f"aslam_tpu_torch.{m}" for m in (
     "main", "models.system", "utils.checkpoint", "utils.dataset",
     "utils.metrics", "utils.pointcloud", "native.loader", "native.build",
     # batched VO, the viewers, the CPU baseline
-    "models.batch_vo", "utils.viewer", "utils.webviewer", "baselines.refcpu")]
+    "models.batch_vo", "utils.viewer", "utils.webviewer", "baselines.refcpu",
+    # distributed BA over torch.distributed
+    "parallel", "parallel.mesh", "parallel.launch", "parallel.sharded_ba",
+    "parallel.sharded_global_ba", "parallel.sharded_gn_cg",
+    "parallel.partition", "parallel.dryrun")]
 
 
 def _fields(cls):

@@ -525,3 +525,62 @@ def test_family_on_card_matches_cpu(family):
         assert torch.equal(d_c[~tie], d_g[~tie])
     else:
         torch.testing.assert_close(d_g[~tie], d_c[~tie], rtol=0, atol=1e-5)
+
+
+@pytest.fixture
+def nccl_world1():
+    """A one-rank NCCL group on the card and its 1x1 mesh, destroyed after
+    the test."""
+    import torch.distributed as dist
+
+    from aslam_tpu_torch.parallel import launch
+    from aslam_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    launch.initialize_local(dev)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_local_ba_on_nccl_equals_local_ba(nccl_world1):
+    """The dry run's windowed Schur problem (4 cameras x 64 points): the
+    sharded schedule on a world-1 NCCL group against `local_ba` on the card,
+    to the reference's 1e-3, and a second run bit for bit."""
+    from aslam_tpu_torch.ops.lba import local_ba
+    from aslam_tpu_torch.parallel.dryrun import CAM, CFG, dryrun_problems
+    from aslam_tpu_torch.parallel.sharded_ba import (pad_problem,
+                                                     sharded_local_ba)
+
+    mesh = nccl_world1
+    prob, _ = dryrun_problems(mesh.device)
+    padded = pad_problem(prob, mesh)
+    out, chi2, n_edges = sharded_local_ba(padded, CAM, CFG, mesh)
+    again = sharded_local_ba(padded, CAM, CFG, mesh)[0]
+    ref, stats = local_ba(prob, CAM, CFG)
+    assert out.cam_T.is_cuda and chi2.is_cuda
+    assert float((out.cam_T - ref.cam_T).abs().max()) <= 1e-3
+    assert float((out.points - ref.points).abs().max()) <= 1e-3
+    assert int(n_edges) == int(stats.n_edges) == 256
+    assert abs(float(chi2) - float(stats.chi2)) < 1e-3
+    assert torch.equal(out.cam_T, again.cam_T)
+    assert torch.equal(out.points, again.points)
+
+
+def test_partitioned_gn_cg_step_on_nccl_equals_gn_cg_step(nccl_world1):
+    """The dry run's joint GN-CG map (8 keyframes x 64 features): the placed
+    sharded step on a world-1 NCCL group against `gn_cg_step` on the card,
+    to the reference's 2e-3."""
+    from aslam_tpu_torch.ops.global_ba import gn_cg_step
+    from aslam_tpu_torch.parallel.dryrun import CAM, CFG, dryrun_problems
+    from aslam_tpu_torch.parallel.partition import partitioned_gn_cg_step
+
+    mesh = nccl_world1
+    _, m = dryrun_problems(mesh.device)
+    out, stats = partitioned_gn_cg_step(m, CAM, CFG, mesh, cg_iters=8)
+    ref, ref_stats = gn_cg_step(m, CAM, CFG, cg_iters=8)
+    assert float((out.kf_T_cw - ref.kf_T_cw).abs().max()) <= 2e-3
+    assert float((out.lm_pos - ref.lm_pos).abs().max()) <= 2e-3
+    assert int(stats.n_edges) == int(ref_stats.n_edges) == 512
+    assert np.isclose(float(stats.chi2), float(ref_stats.chi2), rtol=0.05)

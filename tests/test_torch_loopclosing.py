@@ -326,8 +326,15 @@ def test_batched_sync_closes_the_loop_with_counted_reads(walk):
 
 @pytest.mark.parametrize("what", ["optimize_cg", "sharded_gn_cg"])
 def test_unported_paths_raise_an_error_that_names_them(what):
-    """`sharded_gn_cg` still waits and says so; `optimize_cg`, once refused,
-    is ported: above 256 keyframes the walk closes its loop through it."""
+    """Both paths, once refused, are ported: the walk closes its loop
+    through `optimize_cg` above 256 keyframes, and through the sharded
+    post-loop GBA (`sharded_gn_cg`, on a one-rank gloo group it creates,
+    destroyed here after), whose map is the reference's to 2e-3.  Without
+    a chain regularizer the sharded GBA keeps less of the pose graph's
+    correction (6.2 -> 5.2 cm at the closing keyframe here, in the JAX
+    package as in the port), so only `optimize_cg` is held to a 20% cut."""
+    import torch.distributed as dist
+
     pcfg = P.port_config(walk_cfg())
     if what == "optimize_cg":      # taken above 256 keyframes
         pcfg = pcfg.replace(map=dataclasses.replace(pcfg.map, max_keyframes=288))
@@ -336,18 +343,32 @@ def test_unported_paths_raise_an_error_that_names_them(what):
             pcfg.loop, post_gba_method="sharded_gn_cg"))
     m, T_true, T_est, _ = looped_map(pcfg, "cpu", seed=1234)
     lt = tlc.LoopClosing(pcfg, "cpu", train_after_kfs=4)
-    if what == "optimize_cg":
+    try:
         for k in range(N_KFS):
             m = lt.process_keyframe(m, k, k)
-        (q, c), = lt.loops
-        assert q >= N_KFS // 2 > c and torch.isfinite(m.kf_T_cw).all()
-        before = np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3])
-        after = np.linalg.norm(P.n(m.kf_T_cw[q])[:3, 3] - T_true[q][:3, 3])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert (lt._mesh is not None) == (what == "sharded_gn_cg")
+    (q, c), = lt.loops
+    assert q >= N_KFS // 2 > c and torch.isfinite(m.kf_T_cw).all()
+    before = np.linalg.norm(T_est[q][:3, 3] - T_true[q][:3, 3])
+    after = np.linalg.norm(P.n(m.kf_T_cw[q])[:3, 3] - T_true[q][:3, 3])
+    if what == "optimize_cg":
         assert after < 0.8 * before, (before, after)
         return
-    with pytest.raises(NotImplementedError, match=what):
-        for k in range(N_KFS):
-            m = lt.process_keyframe(m, k, k)
+    assert after < before, (before, after)
+    cfg = dataclasses.replace(walk_cfg(), loop=dataclasses.replace(
+        walk_cfg().loop, post_gba_method="sharded_gn_cg"))
+    mj = P.looped(seed=1234)[3]
+    lj = jlc.LoopClosing(cfg, train_after_kfs=4)
+    for k in range(N_KFS):
+        mj = lj.process_keyframe(mj, k, k)
+    assert lj.loops == lt.loops
+    np.testing.assert_allclose(P.n(m.kf_T_cw), np.asarray(mj.kf_T_cw),
+                               rtol=0, atol=2e-3)
+    np.testing.assert_allclose(P.n(m.lm_pos), np.asarray(mj.lm_pos),
+                               rtol=0, atol=2e-3)
 
 
 def walk_cfg():

@@ -177,9 +177,11 @@ def test_non_inline_mapping_maps_every_keyframe(walk):
 
 
 def test_convert_slam_state_and_unported_configs(walk):
-    """Loop closing and config 3, once refused, now run; what is still
-    unported raises an error that names it."""
+    """Loop closing and config 3, once refused, now run; so does the last
+    path that raised, the sharded post-loop GBA (`sharded_gn_cg`)."""
     import dataclasses
+
+    import torch.distributed as dist
 
     from aslam_tpu_torch.models.loopclosing import LoopClosing
     from aslam_tpu_torch.profile_slam import looped_map
@@ -209,11 +211,16 @@ def test_convert_slam_state_and_unported_configs(walk):
     assert len(lc.loops) == 1 and torch.isfinite(m.kf_T_cw).all()
     for name in ("save", "resume", "new_sequence"):
         assert callable(getattr(tds.DeviceSlam, name))
-    # what still waits says so
-    waiting = pcfg.replace(loop=dataclasses.replace(
+    # the sharded post-loop GBA runs on a one-rank gloo group it creates
+    sharded = pcfg.replace(loop=dataclasses.replace(
         pcfg.loop, post_gba_method="sharded_gn_cg"))
-    with pytest.raises(NotImplementedError, match="sharded_gn_cg"):
-        LoopClosing(waiting, "cpu")._post_loop_gba(st.m)
+    try:
+        m2 = LoopClosing(sharded, "cpu")._post_loop_gba(st.m)
+        assert dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+    assert torch.isfinite(m2.kf_T_cw).all() and torch.isfinite(m2.lm_pos).all()
+    assert torch.equal(m2.kf_lm, st.m.kf_lm)
 
 
 N_LOOP = 30
