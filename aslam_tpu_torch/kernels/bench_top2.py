@@ -48,9 +48,10 @@ def graph_us(launch, launches: int = 20, replays: int = 50) -> float:
     return start.elapsed_time(end) * 1e3 / (launches * replays)
 
 
-def event_us(fn, iters: int = 200) -> float:
-    """Microseconds per eager call of `fn()`, CUDA events around `iters`."""
-    for _ in range(10):
+def event_us(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Microseconds per eager call of `fn()`, CUDA events around `iters`
+    after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()

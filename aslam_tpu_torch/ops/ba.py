@@ -10,6 +10,10 @@ left-multiplicative se(3) increments, T <- exp(xi) T; the reference's
 
 `pose_only_ba` takes a leading batch axis (T_cw [B,4,4], edges [B,N]): one
 6x6 system per lane, solved together (batched VO, `models/batch_vo.py`).
+For CUDA tensors it launches the hand-written kernel `csrc/pose_ba.cu`
+(`ops/pose_ba_kernel.py`): the whole call, every lane, in one launch.  For
+CPU tensors it runs `pose_only_ba_plain`, the same computation as PyTorch
+ops, which the tests hold to the reference and the kernel to.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from aslam_tpu_torch.config import BAConfig, CameraModel
 from aslam_tpu_torch.ops.linalg import chol_solve
+from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
 from aslam_tpu_torch.utils.se3 import T_inv, se3_exp, se3_log
 
 
@@ -96,7 +101,32 @@ def pose_only_ba(
     `prior_weight` > 0 (a float, or a scalar tensor on the points' device,
     never read back) adds a motion-prior edge anchored at T_cw_init with
     information prior_weight * diag(1,1,1, 4,4,4).  With a batch (T_cw_init
-    [...,4,4], edges [...,N]) every lane is its own problem."""
+    [...,4,4], edges [...,N]) every lane is its own problem.
+
+    Points on the CPU take `pose_only_ba_plain`; points on a card take the
+    kernel (`pose_only_ba_kernel`), which raises on what it does not take."""
+    if pts_w.device.type == "cpu":
+        return pose_only_ba_plain(T_cw_init, pts_w, obs_uv, obs_ur, obs_z,
+                                  valid, cam, cfg, prior_weight)
+    return PoseBAResult(*pose_only_ba_kernel(
+        T_cw_init.contiguous(), pts_w.contiguous(), obs_uv.contiguous(),
+        obs_ur.contiguous(), obs_z.contiguous(), valid.contiguous(), cam, cfg,
+        prior_weight))
+
+
+def pose_only_ba_plain(
+    T_cw_init: torch.Tensor,
+    pts_w: torch.Tensor,
+    obs_uv: torch.Tensor,
+    obs_ur: torch.Tensor,
+    obs_z: torch.Tensor,
+    valid: torch.Tensor,
+    cam: CameraModel,
+    cfg: BAConfig,
+    prior_weight: float | torch.Tensor = 0.0,
+) -> PoseBAResult:
+    """`pose_only_ba` as PyTorch ops, on any device: the CPU path, and the
+    yardstick the kernel is held to on the card."""
     lead = pts_w.shape[:-2]
     N = pts_w.shape[-2]
     dev, dt = pts_w.device, pts_w.dtype

@@ -19,6 +19,19 @@ Phases, one printed line each (or more, for phases 3 and 4):
      the host's time per call and the card's bound, with the 1-bit tensor-core
      rate that the bound divides by measured beside its constant; and its
      device time and bound at 8192 x 8192;
+ 2b. the motion-only BA kernel (`csrc/pose_ba.cu`, `pose_only_ba` on the
+     card) against its plain PyTorch version on the cases of the `-m cuda`
+     tests (`kernels/bench_pose_ba.py`: one VO frame's 1024 edges, 1, 37 and
+     1000 edges, none valid, mono or stereo only, a NaN edge, the prior
+     weight as a float and as a device scalar, 1 x 1 iterations): T to
+     1e-5, chi2 to rtol 1e-4, inliers exactly but at near ties; B = 16
+     lanes in one launch, each the bits of its lane alone; then at N = 1024
+     and B = 16 its device time (CUDA graph), eager time beside the plain
+     version's (in turns), host time and bound.  In phases 3 to 11 every run
+     of the path must launch it once per tracked VO frame or batched step,
+     twice per config-2 SLAM frame (`rba_step`, then `track_local_map`),
+     once with GICP's odometry, never in the RICP odometry alone, and once
+     more for each `bootstrap_track`;
   3. the full-width VO (640x480, 1024 keypoints, 8 levels, 256 RANSAC
      hypotheses) over 32 rendered frames fed as uint8 / uint16, through
      `VisualOdometry.process` and through one `track_sequence` call.  Each
@@ -96,7 +109,7 @@ Phases, one printed line each (or more, for phases 3 and 4):
      sequences (seeds 50 + b, uint8 / uint16), through `process` and through
      `process_chunk` in two chunks: chunked == stream bit for bit, one kernel
      launch per batched step, CUDA kernels per step (torch.profiler) at B =
-     16 at most 1.2x those at B = 1 and at most 100 more per extra lane,
+     16 at most 100 more per extra lane than at B = 1,
      every lane's ATE below 1 cm and lanes 0-3 within 1.5x the JAX
      package's; aggregate frame-tracks per second,
      ms per step, busy share and peak memory per B; then at B = 16 with
@@ -125,7 +138,8 @@ Phases, one printed line each (or more, for phases 3 and 4):
      cells' ATE gates), every metric `BENCHMARK.json` names for the cell
      printed with its unit, the top kernels and idle gaps, and one
      `hamming_top2` launch per tracked frame.
-Then a JSON line on the kernels, and last `{"ok": true, "device": ...}`.
+Then a JSON line on both kernels (launches: phases 3 to 11's runs), and last
+`{"ok": true, "device": ...}`.
 Any failure raises, so the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device, and it imports nothing of JAX.
 """
@@ -233,6 +247,33 @@ BATCHES = (1, 4, 16)
 MAX_KERNELS_PER_LANE = 100   # CUDA kernels a step adds per lane past the first
 DETECTORS = ("FAST", "GFTT", "HARRIS", "DOG", "HESSIAN", "STAR")
 DESCRIPTORS = ("ORB", "BRIEF", "FREAK", "LATCH", "SIFT")
+
+
+# `pose_only_ba_kernel` launches of the main path's runs in phases 3-11, added
+# by `_pose_launches` just after each run
+POSE_LAUNCHES = {"total": 0}
+
+
+def zero_launches():
+    """Every kernel's launch count to 0, just before a run of the path."""
+    from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    hamming_top2.launches = pose_only_ba_kernel.launches = 0
+
+
+def _pose_launches(what, expected, count=None):
+    """Just after a run: the motion-only BA kernel's launches in it (`count`,
+    or the counter as the run left it) must be `expected`; they go into the
+    kernels line's total.  -> the count."""
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    k = pose_only_ba_kernel.launches if count is None else count
+    if k != expected:
+        raise AssertionError(f"{what}: {k} pose_only_ba launches, {expected} "
+                             f"expected")
+    POSE_LAUNCHES["total"] += k
+    return k
 
 
 def phase1_device_and_build():
@@ -382,6 +423,74 @@ def phase2_kernel_vs_plain(dev):
     }
 
 
+def phase2b_pose_ba_vs_plain(dev):
+    """The motion-only BA kernel against its plain version on the card, at
+    the cases of tests/test_torch_cuda.py (`bench_pose_ba.CASES`) and at B =
+    16 lanes (each the bits of its lane alone), then its times at one VO
+    frame's N = 1024 edges and at B = 16 x 1024.  -> the `pose_only_ba`
+    entry of the kernels line, its launches apart."""
+    from aslam_tpu_torch.config import BAConfig
+    from aslam_tpu_torch.kernels import bench_pose_ba as PB
+    from aslam_tpu_torch.ops import ba
+
+    cam = PB.camera()
+    err, ties = {}, 0
+    for case in PB.CASES:
+        args, cfg, prior = PB.pose_ba_case(case, dev)
+        out = ba.pose_only_ba(*args, cam, cfg, prior)
+        ref = ba.pose_only_ba_plain(*args, cam, cfg, prior)
+        torch.cuda.synchronize()
+        got = PB.check_against_plain(out, ref, args, cam, cfg, prior)
+        err[case] = got["dT"]
+        ties += got["near_ties"]
+    cfg = BAConfig()
+    lanes, batch = PB.pose_ba_batch(dev)
+    out = ba.pose_only_ba(*batch, cam, cfg)
+    for k, lane in enumerate(lanes):
+        if not all(PB.same_bits(x, y[k])
+                   for x, y in zip(ba.pose_only_ba(*lane, cam, cfg), out)):
+            raise AssertionError(f"pose_ba: lane {k} of B = 16 differs from "
+                                 f"the same problem alone")
+    got = PB.check_against_plain(out, ba.pose_only_ba_plain(*batch, cam, cfg),
+                                 batch, cam, cfg, 0.0)
+    err["B=16"] = got["dT"]
+    ties += got["near_ties"]
+    print(f"phase 2b: pose_only_ba kernel == plain (T to 1e-5, chi2 to rtol "
+          f"1e-4 / atol 1e-3, inliers exactly but {ties} near-tie flags) on "
+          f"{len(err)} cases, max |dT| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+          + f"; B = 16 lanes == 16 single calls bit for bit", flush=True)
+
+    args, cfg, _ = PB.pose_ba_case("vo_frame_1024", dev)
+    t1 = PB.timings(args, cam, cfg)
+    t16 = PB.timings(batch, cam, cfg)
+    for name, t in (("N = 1024 (a VO frame)", t1), ("B = 16 x 1024", t16)):
+        print(f"phase 2b: {name}: device {t['device_us']:.1f} us (20 launches "
+              f"in a CUDA graph, 10 replays), bound {t['bound_us']:.3f} us "
+              f"({t['bound_by']}); per eager call {t['eager_us']:.1f} us, "
+              f"plain {t['plain_us'] / 1e3:.1f} ms (CUDA events, "
+              f"plain/kernel/kernel/plain); host {t['host_us']:.1f} us per "
+              f"call (median of 3 x 200 unsynchronised calls)", flush=True)
+    return {
+        "name": "pose_only_ba",
+        "route": "cuda",
+        "source": "aslam_tpu_torch/csrc/pose_ba.cu",
+        "replaces": "aslam_tpu/ops/ba.py:100",
+        "max_abs_err": max(err.values()),
+        "ms": t1["eager_us"] / 1e3,
+        "plain_ms": t1["plain_us"] / 1e3,
+        "device_ms": t1["device_us"] / 1e3,
+        "host_ms": t1["host_us"] / 1e3,
+        "bound_ms": t1["bound_us"] / 1e3,
+        "bound_by": t1["bound_by"],
+        "library_ms": None,       # no single PyTorch call computes motion-only BA
+        "device_ms_b16": t16["device_us"] / 1e3,
+        "ms_b16": t16["eager_us"] / 1e3,
+        "plain_ms_b16": t16["plain_us"] / 1e3,
+        "bound_ms_b16": t16["bound_us"] / 1e3,
+    }
+
+
 def _check_run(mode, poses, n_matches, launches, gt_poses, seconds, card):
     from aslam_tpu_torch.utils import trajectory
 
@@ -392,6 +501,7 @@ def _check_run(mode, poses, n_matches, launches, gt_poses, seconds, card):
     if launches != n_tracked:
         raise AssertionError(f"{mode}: {launches} hamming_top2 launches for "
                              f"{n_tracked} tracked frames")
+    pose = _pose_launches(mode, n_tracked)      # one motion-only BA a frame
     if min(n_matches) < MIN_MATCHES:
         raise AssertionError(f"{mode}: a frame had {min(n_matches)} matches")
     ate = trajectory.ate_rmse(trajectory.camera_centers(poses),
@@ -400,8 +510,8 @@ def _check_run(mode, poses, n_matches, launches, gt_poses, seconds, card):
         raise AssertionError(f"{mode}: ATE {ate:.5f} m vs JAX {JAX_ATE_M:.5f} m")
     print(f"phase 3: {mode}: {len(poses)} frames, ATE {ate * 100:.3f} cm "
           f"(JAX {JAX_ATE_M * 100:.3f} cm), min matches {min(n_matches)}, "
-          f"{launches} kernel launches, {len(poses) / seconds:.2f} fps "
-          f"[{card}]", flush=True)
+          f"{launches} hamming_top2 and {pose} pose_only_ba launches, "
+          f"{len(poses) / seconds:.2f} fps [{card}]", flush=True)
     return ate
 
 
@@ -433,7 +543,7 @@ def phase3_vo(dev, card):
     # stream mode: the CLI's --mode vo engine, one frame at a time
     gen = torch.Generator(device=dev).manual_seed(0)
     vo = VisualOdometry(cfg, dev, generator=gen)
-    hamming_top2.launches = 0
+    zero_launches()
     start.record()
     for i in range(N_FRAMES):
         vo.process(imgs_u8[i], depths_u16[i])
@@ -446,7 +556,7 @@ def phase3_vo(dev, card):
 
     # chunked mode: one track_sequence call over the recorded frames
     gen = torch.Generator(device=dev).manual_seed(0)
-    hamming_top2.launches = 0
+    zero_launches()
     start.record()
     imgs_d = torch.from_numpy(imgs_u8).to(dev)
     depths_d = torch.from_numpy(depths_u16).to(dev)
@@ -469,9 +579,11 @@ def _slam_run(mode, cfg, dev, imgs, deps, chunk=None, sync_every=129):
     from aslam_tpu_torch.models.device_slam import DeviceSlam
     from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
     from aslam_tpu_torch.ops.lba import local_ba
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
 
     torch.cuda.synchronize()
-    hamming_top2.launches = read_host.count = local_ba.runs = 0
+    zero_launches()
+    read_host.count = local_ba.runs = 0
     t0 = time.perf_counter()
     slam = DeviceSlam(cfg, dev, seed=0, sync_every=sync_every)
     if chunk is None:
@@ -486,12 +598,15 @@ def _slam_run(mode, cfg, dev, imgs, deps, chunk=None, sync_every=129):
     traj, stats = slam.finish()
     # with loop closing, finish() runs the cadence once more and reads
     counts = {"launches": hamming_top2.launches, "reads": read_host.count,
-              "lba": local_ba.runs}
+              "lba": local_ba.runs, "pose_ba": pose_only_ba_kernel.launches}
     return slam, traj, stats, counts, seconds
 
 
 def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card,
-                phase=4, jax_ate=(JAX_SLAM_ATE_M, JAX_SLAM_ATE_REBUILT_M)):
+                phase=4, jax_ate=(JAX_SLAM_ATE_M, JAX_SLAM_ATE_REBUILT_M),
+                pose_per_frame=2):
+    """`pose_per_frame`: motion-only BAs a tracked frame, 2 with the RBA
+    odometry (`rba_step`, then `track_local_map`), 1 with GICP's."""
     from aslam_tpu_torch.utils import trajectory
 
     if not np.isfinite(traj).all():
@@ -500,6 +615,7 @@ def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card,
     if counts["launches"] != n_tracked:
         raise AssertionError(f"{mode}: {counts['launches']} hamming_top2 "
                              f"launches for {n_tracked} tracked frames")
+    _pose_launches(mode, pose_per_frame * n_tracked, counts["pose_ba"])
     n_kfs = int(slam.state.n_kfs)
     if slam.kfs_mapped != n_kfs:
         raise AssertionError(f"{mode}: {slam.kfs_mapped} KFs mapped of {n_kfs}")
@@ -517,7 +633,8 @@ def _check_slam(mode, slam, traj, stats, counts, seconds, gt, card,
           f"inserted, {n_kfs} live, {culled} culled; "
           f"{int(m.lm_valid.sum())} landmarks live of "
           f"{slam.state.next_lm.item()} created; {counts['lba']} local BAs; "
-          f"{counts['launches']} kernel launches; {counts['reads']} host reads "
+          f"{counts['launches']} hamming_top2 and {counts['pose_ba']} "
+          f"pose_only_ba launches; {counts['reads']} host reads "
           f"({counts['reads'] / n_tracked:.2f} per tracked frame); "
           f"min tracked {int(stats[:, 0].min())}; "
           f"{len(traj) / seconds:.2f} fps [{card}]", flush=True)
@@ -563,9 +680,11 @@ def phase4_slam(dev, card, walk):
             f"a second chunked run differs: max |dT| "
             f"{np.abs(again[1] - chunked[1]).max()}, counts {again[3]} vs "
             f"{chunked[3]}")
+    _pose_launches("chunked again", again[3]["pose_ba"])
     print(f"phase 4: a second process_chunk 2x{N_SLAM // 2} run in this "
           f"call: bit-identical poses, rebuilt poses and keyframe ids (max "
-          f"|dT| 0.0), {again[3]['launches']} kernel launches, "
+          f"|dT| 0.0), {again[3]['launches']} hamming_top2 and "
+          f"{again[3]['pose_ba']} pose_only_ba launches, "
           f"{N_SLAM / again[4]:.2f} fps [{card}]", flush=True)
 
     stream = _slam_run("stream", cfg, dev, imgs[:N_STREAM], deps[:N_STREAM])
@@ -593,10 +712,12 @@ def _ricp_run(policy, cfg, dev, imgs_d, depths_d):
     from aslam_tpu_torch.models.frame import make_frame, with_pose
     from aslam_tpu_torch.models.odometry import ricp_step
     from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
 
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
-    hamming_top2.launches = read_host.count = 0
+    zero_launches()
+    read_host.count = 0
     ricp_step.escalated = ricp_step.converged = 0
     t0 = time.perf_counter()
     grid = init_grid_thresholds(cfg.extractor, dev)
@@ -613,7 +734,8 @@ def _ricp_run(policy, cfg, dev, imgs_d, depths_d):
     seconds = time.perf_counter() - t0
     counts = {"launches": hamming_top2.launches, "reads": read_host.count,
               "escalated": ricp_step.escalated,
-              "converged": ricp_step.converged}
+              "converged": ricp_step.converged,
+              "pose_ba": pose_only_ba_kernel.launches}
     return torch.stack(poses).cpu().numpy(), results, counts, seconds
 
 
@@ -647,6 +769,8 @@ def phase5_config3(dev, card, vo_frames, walk):
             if counts["launches"] != n_tracked:
                 raise AssertionError(f"{mode}: {counts['launches']} hamming_top2 "
                                      f"launches for {n_tracked} tracked frames")
+            # the RICP odometry runs no motion-only BA
+            _pose_launches(mode, 0, counts["pose_ba"])
             # what the predicate said on each frame (read after the run)
             n_esc = sum(int(_escalation(r, cfg)[0]) for r in results)
             if policy is ricp_step and (
@@ -687,7 +811,7 @@ def phase5_config3(dev, card, vo_frames, walk):
                     chunk=N_SLAM // 2)
     ate, ate_r, inserted = _check_slam(
         f"config 3, process_chunk 2x{N_SLAM // 2}", *run, gt_walk, card,
-        phase=5, jax_ate=JAX_SLAM3_ATE_M)
+        phase=5, jax_ate=JAX_SLAM3_ATE_M, pose_per_frame=1)
     if inserted < 3 or run[3]["lba"] < 1:
         raise AssertionError(f"config 3: {inserted} KFs inserted, "
                              f"{run[3]['lba']} local BAs")
@@ -820,13 +944,15 @@ def _gate_loop(run, what):
 
 
 def _cli(root, out, cfg, *flags):
-    """One run of the CLI in process, the launch count zeroed just before ->
-    (Metrics, engine, kernel launches, seconds, the loader's line)."""
+    """One run of the CLI in process, the launch counts zeroed just before ->
+    (Metrics, engine, hamming_top2 launches, seconds, the loader's line,
+    pose_only_ba launches)."""
     from aslam_tpu_torch import main as cli
     from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
 
     torch.cuda.synchronize()
-    hamming_top2.launches = 0
+    zero_launches()
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
@@ -837,7 +963,8 @@ def _cli(root, out, cfg, *flags):
     seconds = time.perf_counter() - t0
     loader = [ln for ln in printed.getvalue().splitlines()
               if ln.startswith("TumSequence")]
-    return metrics, engine, hamming_top2.launches, seconds, loader[0]
+    return (metrics, engine, hamming_top2.launches, seconds, loader[0],
+            pose_only_ba_kernel.launches)
 
 
 def _file_centers(mode, path, n):
@@ -926,7 +1053,9 @@ def phase7_host_shell(dev, card, walk):
 
         # (b) the CLI over it: VO, the device engine, the host engine
         out = os.path.join(tmp, "vo")
-        metrics, vo, k, seconds, loader = _cli(root, out, cfg, "--mode", "vo")
+        metrics, vo, k, seconds, loader, pose = _cli(root, out, cfg, "--mode",
+                                                     "vo")
+        _pose_launches("main --mode vo", n - 1, pose)
         ate = trajectory.ate_rmse(
             _file_centers("vo", out + "/CameraTrajectory.txt", n), gt_c)
         ref = JAX_CLI_ATE_M["vo"]
@@ -942,9 +1071,10 @@ def phase7_host_shell(dev, card, walk):
               f"[{card}]", flush=True)
 
         out = os.path.join(tmp, "device")
-        metrics, slam, k, seconds, _ = _cli(
+        metrics, slam, k, seconds, _, pose = _cli(
             root, out, cfg, "--mode", "slam+gicp", "--engine", "device",
             "--chunk", str(n // 2))
+        _pose_launches("main --engine device", n - 1, pose)
         ate = trajectory.ate_rmse(
             _file_centers("device", out + "/CameraTrajectory.txt", n), gt_c)
         ate_r = trajectory.ate_rmse(
@@ -969,9 +1099,10 @@ def phase7_host_shell(dev, card, walk):
 
         out = os.path.join(tmp, "host")
         ckpt = os.path.join(tmp, "map")
-        metrics, sys1, k, seconds, _ = _cli(
+        metrics, sys1, k, seconds, _, pose = _cli(
             root, out, cfg, "--mode", "slam+gicp", "--engine", "host",
             "--checkpoint", ckpt)
+        _pose_launches("main --engine host", n - 1, pose)
         for name in ("CameraTrajectory.txt", "KeyFrameTrajectory.txt",
                      "Histogram.csv", "metrics.json"):
             if not os.path.exists(os.path.join(out, name)):
@@ -1014,7 +1145,8 @@ def phase7_host_shell(dev, card, walk):
         whole = _slam_run("uninterrupted", cfg, dev, imgs, deps, chunk=half,
                           sync_every=16)
         launches += whole[3]["launches"]
-        hamming_top2.launches = 0
+        _pose_launches("uninterrupted", n - 1, whole[3]["pose_ba"])
+        zero_launches()
         first = DeviceSlam(cfg, dev, seed=0, sync_every=16)
         first.process_chunk(imgs[:half], deps[:half], ts=ts[:half])
         torch.cuda.synchronize()
@@ -1043,6 +1175,7 @@ def phase7_host_shell(dev, card, walk):
                 f"uninterrupted run, same keyframes: {same_kfs}, "
                 f"{hamming_top2.launches} launches")
         launches += hamming_top2.launches
+        _pose_launches("save / resume", n - 1)
         mib = _mib(prefix, ".session.npz", ".vocab.npz", ".loopdb.npz")
         print(f"phase 7: DeviceSlam {half} frames, save ({save_ms:.0f} ms, "
               f"{mib:.1f} MiB), resume in a fresh object ({resume_ms:.0f} ms), "
@@ -1052,7 +1185,7 @@ def phase7_host_shell(dev, card, walk):
               f"{hamming_top2.launches} kernel launches [{card}]", flush=True)
 
         lc = second.loop_closing
-        hamming_top2.launches = 0
+        zero_launches()
         reads0 = read_host.count
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1076,6 +1209,8 @@ def phase7_host_shell(dev, card, walk):
                 f"{n_bound} bindings, pose error {e_t:.4f} m / {e_r:.4f} rad, "
                 f"next frame {e_next}, tracked {stats_n[-1, 0]}")
         launches += hamming_top2.launches
+        # bootstrap_track, then the next frame's track_local_map
+        _pose_launches("new_sequence", 2)
         print(f"phase 7: DeviceSlam.new_sequence on frame {RELOC_FRAME}: "
               f"relocalized against keyframe slot {lc.relocalized[0]} "
               f"(shipped vocabulary, {int(lc.db.kf_in_db.sum())} keyframes in "
@@ -1089,9 +1224,11 @@ def phase7_host_shell(dev, card, walk):
 
         # (d) the host engine resumed from the checkpoint, a second sequence
         out = os.path.join(tmp, "second")
-        metrics, sys2, k, seconds, _ = _cli(
+        metrics, sys2, k, seconds, _, pose = _cli(
             root, out, cfg, "--mode", "slam+gicp", "--engine", "host",
             "--resume", ckpt, "--max-frames", str(N_SECOND))
+        # bootstrap_track on the first frame, then one a tracked frame
+        _pose_launches("main --resume", N_SECOND, pose)
         xyz = _file_centers("resumed", out + "/CameraTrajectory.txt", N_SECOND)
         ate = trajectory.ate_rmse(xyz, gt_c[:N_SECOND])
         off = float(np.linalg.norm(xyz - gt_c[:N_SECOND], axis=1).max())
@@ -1271,7 +1408,7 @@ def phase8_families(dev, card, vo_frames, walk):
         vo = VisualOdometry(cfg, dev,
                             generator=torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
-        hamming_top2.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         for i in range(N_FRAMES):
             vo.process(imgs_u8[i], depths_u16[i])
@@ -1279,6 +1416,8 @@ def phase8_families(dev, card, vo_frames, walk):
         seconds = time.perf_counter() - t0
         k = hamming_top2.launches
         launches += k
+        # one motion-only BA a frame, whatever the matcher
+        _pose_launches(f"VO {det}+{des}", N_FRAMES - 1)
         poses = np.asarray(vo.poses)
         ate = trajectory.ate_rmse(trajectory.camera_centers(poses),
                                   trajectory.camera_centers(gt))
@@ -1314,8 +1453,9 @@ def phase8_families(dev, card, vo_frames, walk):
         dataset.write_tum_sequence(root, imgs, deps, [0.033 * i for i in range(n)])
         for run in ("first", "second"):
             out = os.path.join(tmp, run)
-            metrics, slam, k, seconds, _ = _cli(root, out, cfg, *flags)
+            metrics, slam, k, seconds, _, pose = _cli(root, out, cfg, *flags)
             launches += k
+            _pose_launches("GFTT+LATCH CLI", n - 1, pose)
             ate = trajectory.ate_rmse(
                 _file_centers(run, out + "/CameraTrajectory.txt", n), gt_c)
             ate_r = trajectory.ate_rmse(
@@ -1478,7 +1618,7 @@ def _phase9b_batch_vo(dev, card, cfg):
         kernels[B] = n_k
         torch.cuda.reset_peak_memory_stats(dev)
 
-        hamming_top2.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         stream = BatchVisualOdometry(cfg, B, dev, seed=0)
         for f in range(F):
@@ -1486,9 +1626,11 @@ def _phase9b_batch_vo(dev, card, cfg):
         traj = stream.trajectories()
         s_stream = time.perf_counter() - t0
         k_stream = hamming_top2.launches
+        # one launch a batched step for all B lanes
+        _pose_launches(f"B = {B} stream", F - 1)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
-        hamming_top2.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         chunked = BatchVisualOdometry(cfg, B, dev, seed=0)
         chunked.process_chunk(imgs[:B, :half], deps[:B, :half])
@@ -1496,6 +1638,7 @@ def _phase9b_batch_vo(dev, card, cfg):
         traj_c = chunked.trajectories()
         s_chunk = time.perf_counter() - t0
         k_chunk = hamming_top2.launches
+        _pose_launches(f"B = {B} chunked", F - 1)
         launches += k_stream + k_chunk
 
         if not (k_stream == k_chunk == F - 1):
@@ -1528,17 +1671,19 @@ def _phase9b_batch_vo(dev, card, cfg):
               flush=True)
     # the pyramid resize and the IC angle run once per lane (module
     # docstrings of ops/pyramid.py and ops/orb.py): ~90 kernels per extra
-    # lane on an H100.  A further per-lane loop would pass the ratio at
-    # B = 16 but not the limit per lane.
+    # lane on an H100.  A further per-lane loop shows in the limit per lane.
+    # (The ratio to B = 1 is printed, not gated: since motion-only BA is one
+    # kernel a call, a B = 1 step is ~5.9k kernels, not ~25k, and those 90
+    # kernels a lane are 1.25x at B = 16.)
     per_lane = (kernels[N_BATCH] - kernels[1]) / (N_BATCH - 1)
-    if kernels[N_BATCH] > 1.2 * kernels[1] or per_lane > MAX_KERNELS_PER_LANE:
+    if per_lane > MAX_KERNELS_PER_LANE:
         raise AssertionError(f"a step at B = {N_BATCH} runs {kernels[N_BATCH]} "
                              f"CUDA kernels, B = 1 {kernels[1]} ({per_lane:.1f} "
                              f"per extra lane, limit {MAX_KERNELS_PER_LANE}): "
                              f"not batched")
     print(f"phase 9: CUDA kernels per step {kernels[1]} at B = 1, "
           f"{kernels[N_BATCH]} at B = {N_BATCH}: "
-          f"{kernels[N_BATCH] / kernels[1]:.3f}x (limit 1.2x), {per_lane:.1f} "
+          f"{kernels[N_BATCH] / kernels[1]:.3f}x, {per_lane:.1f} "
           f"per extra lane (limit {MAX_KERNELS_PER_LANE}) [{card}]", flush=True)
 
     # lanes 0-3 of a B = 16 run against the unbatched chain, same draws
@@ -1598,9 +1743,10 @@ def _phase9c_viewers(dev, card, walk, ate_device):
         root = os.path.join(tmp, "walk")
         dataset.write_tum_sequence(root, imgs, deps, [0.033 * i for i in range(n)])
         out = os.path.join(tmp, "device")
-        metrics, slam, k, seconds, _ = _cli(
+        metrics, slam, k, seconds, _, pose = _cli(
             root, out, cfg, "--mode", "slam+gicp", "--engine", "device",
             "--chunk", str(n // 2), "--render-map", "--viewer", "0")
+        _pose_launches("--render-map / --viewer", n - 1, pose)
         viewer = slam.viewer
         try:
             page = urllib.request.urlopen(viewer.url, timeout=10).read()
@@ -1878,12 +2024,14 @@ def phase10_parallel(dev, card, loop6):
     import torch.distributed as dist
 
     from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
     from aslam_tpu_torch.parallel import launch
     from aslam_tpu_torch.parallel.mesh import make_mesh
 
     print(f"phase 10: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s) [{card}]", flush=True)
     launches = hamming_top2.launches
+    pose = pose_only_ba_kernel.launches
     launch.initialize_local(dev)
     try:
         mesh = make_mesh(1)
@@ -1894,6 +2042,8 @@ def phase10_parallel(dev, card, loop6):
     _phase10c_two_ranks(card)
     if hamming_top2.launches != launches:
         raise AssertionError("phase 10 launched hamming_top2")
+    if pose_only_ba_kernel.launches != pose:
+        raise AssertionError("phase 10 launched pose_only_ba")
 
 
 # the benchmark's cells as phase 11 cuts them: (cell, timed frames, warm-up
@@ -1931,15 +2081,16 @@ def phase11_benchmark(card):
     """The benchmark's two cells, cut short, once each through its own entry
     function (`benchmark.run.run_cell`) traced, which times the pass with
     tracing off and then again under the spans: correct, every metric of
-    `BENCHMARK.json` printed with its unit, one kernel launch per tracked
-    frame.  -> kernel launches."""
+    `BENCHMARK.json` printed with its unit, one `hamming_top2` launch per
+    tracked frame and one `pose_only_ba` launch (VO) or two (SLAM).  ->
+    hamming_top2 launches."""
     from aslam_tpu_torch.ops.hamming_top2 import hamming_top2
     from benchmark import run as bench_run
 
     with open("BENCHMARK.json") as f:
         bench = json.load(f)
     t0 = time.perf_counter()
-    launches = hamming_top2.launches
+    launches = 0
     with tempfile.TemporaryDirectory(prefix="aslam_bench_") as tmp:
         for name, frames, warmup, profiled in BENCH_CUTS:
             lines = []
@@ -1949,6 +2100,7 @@ def phase11_benchmark(card):
                 print(*a, **kw)
 
             # a traced run times its pass untraced first, then traced
+            zero_launches()
             res = bench_run.run_cell(
                 name, traced=True, cut=(frames, warmup, profiled),
                 out=os.path.join(tmp, f"{name}.json"), echo=echo)
@@ -1958,13 +2110,17 @@ def phase11_benchmark(card):
             if res["metrics"]["hamming_top2_launches_per_frame"] != 1.0:
                 raise AssertionError(f"phase 11: {name}: not one "
                                      f"hamming_top2 launch per frame")
+            # every tracked frame of every pass launched hamming_top2 once
+            launches += hamming_top2.launches
+            per_frame = 1 if name.startswith("vo_") else 2
+            _pose_launches(f"phase 11: {name}", per_frame * hamming_top2.launches)
             print(f"phase 11: {name}: correct, {len(res['metrics'])} "
                   f"metrics, fps {res['metrics']['fps']:.3f} untraced, "
                   f"{res['metrics']['fps_traced']:.3f} traced [{card}]",
                   flush=True)
     print(f"phase 11: took {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
-    return hamming_top2.launches - launches
+    return launches
 
 
 def main():
@@ -1977,6 +2133,7 @@ def main():
     t0 = time.perf_counter()
     card = phase1_device_and_build()
     kernel = phase2_kernel_vs_plain(dev)
+    pose_kernel = phase2b_pose_ba_vs_plain(dev)
     from aslam_tpu_torch.profile_slam import bench_config2, bench_walk
 
     launches, vo_frames = phase3_vo(dev, card)
@@ -2005,8 +2162,9 @@ def main():
     launches += phase11_benchmark(card)
     print(f"chip_smoke: phases 1-11 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
-    print(json.dumps({"kernels": [{**kernel, "launches": launches}]}),
-          flush=True)
+    print(json.dumps({"kernels": [
+        {**kernel, "launches": launches},
+        {**pose_kernel, "launches": POSE_LAUNCHES["total"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

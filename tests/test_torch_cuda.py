@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from aslam_tpu_torch.kernels import bench_pose_ba as PB
 from aslam_tpu_torch.ops.hamming_top2 import hamming_top2, hamming_top2_plain
 
 pytestmark = pytest.mark.cuda
@@ -584,3 +585,140 @@ def test_partitioned_gn_cg_step_on_nccl_equals_gn_cg_step(nccl_world1):
     assert float((out.lm_pos - ref.lm_pos).abs().max()) <= 2e-3
     assert int(stats.n_edges) == int(ref_stats.n_edges) == 512
     assert np.isclose(float(stats.chi2), float(ref_stats.chi2), rtol=0.05)
+
+
+# motion-only BA: csrc/pose_ba.cu (ops/pose_ba_kernel.py) against
+# ops/ba.py::pose_only_ba_plain on the card; the cases and the comparison are
+# kernels/bench_pose_ba.py's (PB), which chip_smoke.py uses too
+
+@pytest.mark.parametrize("case", PB.CASES)
+def test_pose_ba_kernel_equals_plain(case):
+    """`pose_only_ba` on the card launches the kernel once (and never the
+    plain version) and agrees with `pose_only_ba_plain` on the same card."""
+    from aslam_tpu_torch.ops import ba
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    dev = _card()
+    cam = PB.camera()
+    args, cfg, prior = PB.pose_ba_case(case, dev)
+    plain = ba.pose_only_ba_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("pose_only_ba took the plain version on the card")
+
+    before = pose_only_ba_kernel.launches
+    ba.pose_only_ba_plain = refuse
+    try:
+        out = ba.pose_only_ba(*args, cam, cfg, prior)
+    finally:
+        ba.pose_only_ba_plain = plain
+    assert pose_only_ba_kernel.launches == before + 1
+    ref = plain(*args, cam, cfg, prior)
+    torch.cuda.synchronize()
+    assert out.T_cw.shape == (4, 4) and out.n_inliers.shape == ()
+    assert out.T_cw.is_cuda and out.inliers.dtype == torch.bool
+    PB.check_against_plain(out, ref, args, cam, cfg, prior)
+    if case in ("all_invalid", "nonfinite"):
+        # every step zero (no edge weighs) or zeroed (NaN): the pose stays
+        assert torch.equal(out.T_cw, args[0]) and torch.equal(ref.T_cw, args[0])
+    if case == "all_invalid":
+        assert int(out.n_inliers) == 0
+
+
+def test_pose_ba_batch_lanes_equal_single_calls_bit_for_bit():
+    """B = 16 problems in one launch: each lane the same bits as the same
+    problem alone, and the batch held to the batched plain version."""
+    from aslam_tpu_torch.config import BAConfig
+    from aslam_tpu_torch.ops import ba
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    dev = _card()
+    cam, cfg = PB.camera(), BAConfig()
+    lanes, args = PB.pose_ba_batch(dev)
+    before = pose_only_ba_kernel.launches
+    out = ba.pose_only_ba(*args, cam, cfg)
+    assert pose_only_ba_kernel.launches == before + 1
+    assert out.T_cw.shape == (16, 4, 4) and out.n_inliers.shape == (16,)
+    for k, lane in enumerate(lanes):
+        one = ba.pose_only_ba(*lane, cam, cfg)
+        for x, y in zip(one, out):
+            assert PB.same_bits(x, y[k]), k
+    ref = ba.pose_only_ba_plain(*args, cam, cfg)
+    torch.cuda.synchronize()
+    PB.check_against_plain(out, ref, args, cam, cfg, 0.0)
+
+
+def test_pose_ba_two_runs_are_bit_identical():
+    from aslam_tpu_torch.ops import ba
+
+    dev = _card()
+    cam = PB.camera()
+    args, cfg, _ = PB.pose_ba_case("vo_frame_1024", dev)
+    prior = torch.tensor(2.0e6, device=dev)
+    first = ba.pose_only_ba(*args, cam, cfg, prior)
+    second = ba.pose_only_ba(*args, cam, cfg, prior)
+    for x, y in zip(first, second):
+        assert PB.same_bits(x, y)
+
+
+def test_pose_ba_is_capturable_in_a_cuda_graph():
+    """One call at N = 1024 with a device prior weight and one at B = 16,
+    captured in a CUDA graph; replays over new input contents (and a new
+    prior weight) equal eager calls on them bit for bit.  `launches` counts
+    the two captured calls, not the replays."""
+    from aslam_tpu_torch.config import BAConfig
+    from aslam_tpu_torch.ops import ba
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    dev = _card()
+    cam, cfg = PB.camera(), BAConfig()
+    single = PB.pose_ba_inputs(1024, 1, dev)
+    _, batch = PB.pose_ba_batch(dev)
+    prior = torch.tensor(2.0e6, device=dev)
+    ba.pose_only_ba(*single, cam, cfg, prior)        # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = pose_only_ba_kernel.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ba.pose_only_ba(*single, cam, cfg, prior),
+                ba.pose_only_ba(*batch, cam, cfg)]
+    assert pose_only_ba_kernel.launches == before + 2
+    for seed in (7, 8):
+        new_single = PB.pose_ba_inputs(1024, seed, dev)
+        new_batch = PB.pose_ba_batch(dev)[1]
+        for held, new in zip(single + batch, new_single + new_batch):
+            held.copy_(new)
+        prior.fill_(1.0e5 * seed)
+        captured = pose_only_ba_kernel.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert pose_only_ba_kernel.launches == captured
+        eager = [ba.pose_only_ba(*single, cam, cfg, prior),
+                 ba.pose_only_ba(*batch, cam, cfg)]
+        for got, want in zip(outs, eager):
+            for x, y in zip(got, want):
+                assert PB.same_bits(x, y), seed
+
+
+def test_pose_ba_kernel_refuses_misplaced_inputs():
+    from aslam_tpu_torch.config import BAConfig
+    from aslam_tpu_torch.ops.pose_ba_kernel import pose_only_ba_kernel
+
+    dev = _card()
+    cam, cfg = PB.camera(), BAConfig()
+    args = PB.pose_ba_inputs(64, 0, dev)
+    with pytest.raises(ValueError, match="prior_weight"):
+        pose_only_ba_kernel(*args, cam, cfg, prior_weight=torch.tensor(1.0))
+    mixed = list(args)
+    mixed[1] = mixed[1].cpu()
+    with pytest.raises(ValueError, match="runs on the card"):
+        pose_only_ba_kernel(*mixed, cam, cfg)
+    strided = list(args)
+    strided[2] = args[2].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        pose_only_ba_kernel(*strided, cam, cfg)
+    if torch.cuda.device_count() > 1:
+        split = list(args)
+        split[4] = split[4].to("cuda:1")
+        with pytest.raises(ValueError, match="different cards"):
+            pose_only_ba_kernel(*split, cam, cfg)
